@@ -1,0 +1,138 @@
+"""Backend registry — one recurrence (``DPSpec``), several engines.
+
+Each backend registers a :class:`Capabilities` declaration and an
+``execute(spec, plan)`` entry point returning an
+:class:`~repro_torch.core.result.SDTWResult`.  ``repro_torch.sdtw``
+resolves a spec, asks the registry for a capable backend and executes;
+an incapable request fails with an error that names who can serve it.
+Counterpart of ``repro.backends.registry``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.result import DEFAULT_OUTPUTS, normalize_outputs
+from repro_torch.core.spec import DPSpec
+
+_BASE_OUTPUTS = frozenset(DEFAULT_OUTPUTS)
+
+
+@dataclasses.dataclass(frozen=True)
+class Capabilities:
+    """What a backend can execute.  Frozen: declared once at register."""
+
+    distances: frozenset
+    outputs: frozenset = _BASE_OUTPUTS   # SDTWResult fields it fills
+
+    def unsupported_reason(self, spec: DPSpec, outputs=None) -> str | None:
+        """None when the spec (and every requested output) is
+        executable, else a short reason."""
+        if spec.distance not in self.distances:
+            return f"distance {spec.distance!r}"
+        if outputs is not None:
+            missing = normalize_outputs(outputs) - self.outputs
+            if missing:
+                return f"output(s) {sorted(missing)}"
+        return None
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    """Everything an execute() needs besides the spec: the (already
+    normalized) operands on their device, the requested sweep outputs
+    and the kernel's segment width."""
+
+    queries: Any
+    reference: Any
+    segment_width: int = 8
+    outputs: frozenset = _BASE_OUTPUTS
+
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    name: str
+    capabilities: Capabilities
+    execute: Callable[[DPSpec, ExecutionPlan], Any]   # -> SDTWResult
+
+    def __call__(self, spec: DPSpec, plan: ExecutionPlan):
+        return self.execute(spec, plan)
+
+
+_REGISTRY: dict[str, Backend] = {}
+_PRIORITY = ("engine", "kernel", "ref")
+
+
+def _priority(device: torch.device) -> tuple:
+    """Auto-selection order: on a CUDA device the wavefront kernel
+    first; elsewhere the kernel would run its plain version, so the
+    engine leads (``repro``'s rule puts the kernel first on TPU)."""
+    if device.type == "cuda":
+        return ("kernel",) + tuple(n for n in _PRIORITY if n != "kernel")
+    return _PRIORITY
+
+
+def register(backend: Backend, *, overwrite: bool = False) -> Backend:
+    if not overwrite and backend.name in _REGISTRY:
+        raise ValueError(f"backend {backend.name!r} already registered")
+    _REGISTRY[backend.name] = backend
+    return backend
+
+
+def _ensure_builtins() -> None:
+    if "engine" not in _REGISTRY:
+        from repro_torch.backends import builtin  # noqa: F401 (registers)
+
+
+def names() -> list[str]:
+    _ensure_builtins()
+    return sorted(_REGISTRY)
+
+
+def get(name: str) -> Backend:
+    _ensure_builtins()
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown backend {name!r}; registered: "
+                         f"{names()}") from None
+
+
+def capable(spec: DPSpec, *, outputs=None,
+            device: torch.device = torch.device("cpu")) -> list[str]:
+    """Backends able to execute ``spec`` and every requested output, in
+    the device's preference order."""
+    _ensure_builtins()
+    ordered = [n for n in _priority(device) if n in _REGISTRY]
+    ordered += [n for n in sorted(_REGISTRY) if n not in ordered]
+    return [n for n in ordered if _REGISTRY[n].capabilities
+            .unsupported_reason(spec, outputs=outputs) is None]
+
+
+def resolve(name: str, spec: DPSpec, *, outputs=None,
+            device: torch.device = torch.device("cpu")) -> Backend:
+    """The named backend, or a capability error naming who can."""
+    backend = get(name)
+    reason = backend.capabilities.unsupported_reason(spec, outputs=outputs)
+    if reason is not None:
+        alternatives = [n for n in capable(spec, outputs=outputs,
+                                           device=device) if n != name]
+        hint = f": use one of {alternatives}" if alternatives else ""
+        raise ValueError(f"backend {name!r} does not support {reason} "
+                         f"(spec {spec.describe()}){hint}")
+    return backend
+
+
+def select(spec: DPSpec, *, outputs=None,
+           device: torch.device = torch.device("cpu")) -> Backend:
+    """The first capable backend in the device's preference order."""
+    choices = capable(spec, outputs=outputs, device=device)
+    if not choices:
+        what = f"spec {spec.describe()}"
+        if outputs is not None:
+            what += f" with outputs={sorted(normalize_outputs(outputs))}"
+        raise ValueError(f"no registered backend supports {what}")
+    return _REGISTRY[choices[0]]

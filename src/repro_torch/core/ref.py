@@ -1,0 +1,105 @@
+"""Reference (oracle) implementations of subsequence DTW for the port.
+
+* :func:`sdtw_numpy` — the float64 full-matrix oracle, a copy of
+  ``repro.core.ref.sdtw_numpy`` (hard-min): the shared judge where the
+  float32 paths disagree.
+* :func:`sdtw_ref` — a row-by-row scan in torch, the counterpart of
+  ``repro.core.ref.sdtw_ref``.  Sequential over both axes (vectorized
+  over the batch only), so it is slow and meant for test-size inputs.
+
+Recurrence, 0-based rows ``i`` and columns ``j``::
+
+    D[i, j] = cost(q[i], r[j]) + min(D[i-1, j], D[i, j-1], D[i-1, j-1])
+
+with ``D[-1, j] = 0`` (an alignment may start anywhere) and
+``D[i, -1] = inf``; the answer is the min of ``D[M-1, j]`` over j.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.spec import DEFAULT_SPEC, INF, NO_WINDOW, DPSpec
+
+
+def _np_cost(spec: DPSpec, a: float, b: float) -> float:
+    if spec.distance == "sqeuclidean":
+        return (a - b) ** 2
+    if spec.distance == "abs":
+        return abs(a - b)
+    return 1.0 - (a * b) / (abs(a) * abs(b) + 1e-8)
+
+
+def sdtw_numpy(q: np.ndarray, r: np.ndarray,
+               spec: DPSpec | None = None) -> tuple[float, int]:
+    """Brute-force full-matrix hard-min sDTW in float64.  O(M*N) memory.
+    Returns (cost, end_index)."""
+    spec = DEFAULT_SPEC if spec is None else spec
+    q = np.asarray(q, dtype=np.float64)
+    r = np.asarray(r, dtype=np.float64)
+    m, n = len(q), len(r)
+    D = np.full((m + 1, n + 1), np.inf, dtype=np.float64)
+    D[0, :] = 0.0  # subsequence: free start anywhere in the reference
+    for i in range(1, m + 1):
+        for j in range(1, n + 1):
+            if spec.band is not None and abs((i - 1) - (j - 1)) > spec.band:
+                continue                      # out of band: stays +inf
+            c = _np_cost(spec, q[i - 1], r[j - 1])
+            prev = 0.0 if i == 1 else min(D[i, j - 1], D[i - 1, j],
+                                          D[i - 1, j - 1])
+            D[i, j] = c + prev
+    last = D[m, 1:]
+    end = int(np.argmin(last))
+    return float(last[end]), end
+
+
+def sdtw_ref(queries: torch.Tensor, reference: torch.Tensor,
+             spec: DPSpec | None = None, *, return_window: bool = False):
+    """Batched row-scan sDTW oracle.
+
+    queries: (B, M) float32; reference: (N,) float32.
+    Returns (costs (B,), ends (B,) int32), or (costs, starts, ends) when
+    ``return_window``.
+    """
+    spec = DEFAULT_SPEC if spec is None else spec
+    q = queries.to(torch.float32)
+    r = reference.to(torch.float32)
+    B, M = q.shape
+    N = r.shape[0]
+    dev = q.device
+    jj = torch.arange(N, device=dev)
+    ok = spec.band_valid(torch.arange(M, device=dev)[:, None], jj[None])
+
+    # row 0: the free start makes every cell its own cost
+    row = spec.cell_cost(q[:, :1], r[None])
+    starts = jj.to(torch.int32).expand(B, N).clone()
+    if ok is not None:
+        row = torch.where(ok[0], row, INF)
+        starts = torch.where(ok[0], starts, NO_WINDOW)
+    big = torch.full((B,), INF, dtype=torch.float32, device=dev)
+    neg = torch.full((B,), NO_WINDOW, dtype=torch.int32, device=dev)
+    for i in range(1, M):
+        cost = spec.cell_cost(q[:, i:i + 1], r[None])
+        new_row = torch.empty_like(row)
+        new_starts = torch.empty_like(starts)
+        left, upleft, s_left, s_upleft = big, big, neg, neg
+        for j in range(N):
+            up, s_up = row[:, j], starts[:, j]
+            if ok is not None and not bool(ok[i, j]):
+                val, s = big, neg
+            else:
+                val = spec.cell_update(cost[:, j], left, up, upleft)
+                s = (spec.start3(left, up, upleft, s_left, s_up, s_upleft)
+                     if return_window else s_left)
+            new_row[:, j] = val
+            new_starts[:, j] = s
+            left, upleft, s_left, s_upleft = val, up, s, s_up
+        row, starts = new_row, new_starts
+    # torch.argmin returns the first minimal index: earliest column wins
+    end = torch.argmin(row, dim=1)
+    cost = row.gather(1, end[:, None])[:, 0]
+    if return_window:
+        start = starts.gather(1, end[:, None])[:, 0]
+        return cost, start, end.to(torch.int32)
+    return cost, end.to(torch.int32)

@@ -1,0 +1,140 @@
+"""Build the port's CUDA sources at first use and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds, not minutes).  Every source is compiled by its own
+``nvcc`` process, all started together.  Libraries go to
+``build/repro_torch/`` at the repository root, named by a hash of the
+source, the flags and ``nvcc --version``, so neither an edited source
+nor another compiler is ever served by a stale library.  A failed build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+          "-Xptxas", "-v", "-lineinfo"]
+# -fmad=false: the wavefront must round (q - r) * (q - r) + min(...)
+# exactly as the plain version does (no fused multiply-add).
+EXTRA = {"wavefront": ["-fmad=false"], "normalizer": []}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+class LaunchCounter:
+    """Counts a wrapper's kernel launches (one per launch, nowhere else),
+    so a run can show that its path went through the kernel."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+        self.by_variant: dict[str, int] = {}
+
+    def add(self, variant: str | None = None) -> None:
+        self.count += 1
+        if variant is not None:
+            self.by_variant[variant] = self.by_variant.get(variant, 0) + 1
+
+    def reset(self) -> None:
+        self.count = 0
+        self.by_variant = {}
+
+
+def on_card(x) -> bool:
+    """A wrapper's dispatch rule: True for a CUDA tensor (launch the
+    kernel), False for a CPU tensor (take the plain version)."""
+    kind = x.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {x.device}")
+    return kind == "cuda"
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the port's CUDA kernels are built at first use")
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def _nvcc_version() -> str:
+    return subprocess.run([_nvcc(), "--version"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout
+
+
+def _target(name: str) -> tuple[Path, list[str]]:
+    src = CSRC / f"{name}.cu"
+    flags = ARCH + COMMON + EXTRA[name]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
+                            + _nvcc_version().encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so", flags
+
+
+def build_all() -> dict[str, str]:
+    """Compile every source that has no current library, one ``nvcc``
+    each, all in parallel.  Returns name -> ptxas report of the builds
+    made now.  Raises with nvcc's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in EXTRA:
+        out, flags = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, out)
+    failed, logs = [], {}
+    for name, (proc, tmp, out) in procs.items():
+        text, _ = proc.communicate()
+        logs[name] = text
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n"
+                          f"{text}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            out, _ = _target(name)
+            if not out.exists():
+                build_all()
+            lib = _libs[name] = ctypes.CDLL(str(out))
+        return lib
+
+
+def check(lib: ctypes.CDLL, status: int, what: str) -> None:
+    """Raise on a CUDA error code returned by a C entry point (each
+    library exports ``error_string``, CUDA's text for the code)."""
+    if status != 0:
+        lib.error_string.restype = ctypes.c_char_p
+        lib.error_string.argtypes = [ctypes.c_int]
+        text = lib.error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({text})")

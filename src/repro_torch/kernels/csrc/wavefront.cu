@@ -1,0 +1,253 @@
+// Batched hard-min subsequence DTW wavefront for Hopper (sm_90a).
+//
+// Replaces: repro/kernels/wavefront.py::wavefront_call (pallas_call body
+// _generic_kernel) under the hard-min sdtw plans: MinArgminFold (K1), the
+// int32 start channel with_window=True (K3), and the Sakoe–Chiba band with
+// band-skip (K4).  One template, instantiated over (segment width W,
+// window, band, distance).
+//
+// What bounds it on an H100: operations.  Every one of the B*M*N cells
+// costs a subtract, a multiply (or an abs), two mins and an add, all in a
+// chain along the row, and reads nothing from device memory (the query
+// sample and the W reference samples sit in registers).  Bytes moved are
+// negligible: B*M + N floats in, three numbers per query out.
+//
+// Design.  One warp per query.  The reference is cut into chunks of
+// 32*W columns; lane l owns the W consecutive columns
+// chunk*32*W + l*W + k (k < W) and holds their reference samples and the
+// previous row's W cell values in registers (the paper's thread
+// coarsening).  Within a chunk the warp sweeps the anti-diagonal: at step
+// t lane l computes query row i = t - l, so the left neighbour of its
+// first cell is lane l-1's last cell of the same row, computed one step
+// earlier, which arrives by __shfl_up_sync (the TPU kernel's pltpu.roll).
+// Lane 0 reads its left neighbour from the boundary strip that lane 31
+// wrote during the previous chunk.
+//
+// The TPU kernel ran its reference blocks as a sequential grid axis that
+// shared ONE VMEM strip.  CUDA blocks run concurrently and in no order, so
+// here the chunk loop runs inside the warp, and the strip is a
+// double-buffered shared-memory column of length M (the paper's two
+// buffers): chunk c reads buffer c&1 and writes buffer (c+1)&1, and a
+// __syncwarp between chunks orders lane 31's writes before lane 0's
+// reads (a second one ends every step; see there).  All 32 lanes execute
+// every step, so every shuffle has a full mask; cells of rows outside
+// [0, M) are computed and never used.
+//
+// Exactness: cells round as the plain version does ((q-r)*(q-r) with
+// __fmul_rn, no fused multiply-add, then __fadd_rn), and min is exact, so
+// on identical inputs cost, end and start equal the plain version bit for
+// bit.  Columns j >= n (the tail of the last chunk) are computed from the
+// zero padding of the reference and never folded; they only feed columns
+// to their right.  Each lane folds its bottom-row cells with a strict <
+// over ascending columns; the warp reduction is lexicographic on
+// (value, column), so the earliest column wins a tie.  Band-skip: the
+// host passes only the chunks holding a column <= (M-1) + band.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kBig = 3.0e38f;   // KERNEL_BIG of repro/core/spec.py
+constexpr int kNoWindow = -1;     // NO_WINDOW
+
+template <int W, bool WINDOW, bool BAND, bool ABS>
+__global__ void __launch_bounds__(32)
+wavefront_kernel(const float* __restrict__ q, const float* __restrict__ r,
+                 int m, int n, int chunks, int band,
+                 float* __restrict__ cost_out, int* __restrict__ end_out,
+                 int* __restrict__ start_out) {
+  extern __shared__ float strip[];            // [2][m] f32 (+ [2][m] i32)
+  int* sstrip = reinterpret_cast<int*>(strip + 2 * m);
+  const int lane = threadIdx.x;
+  const float* qb = q + static_cast<size_t>(blockIdx.x) * m;
+
+  float prev[W];                              // row i-1 of my W cells
+  int sprev[W];
+  float best_v = INFINITY;
+  int best_j = 0, best_s = kNoWindow;
+
+  for (int c = 0; c < chunks; ++c) {
+    const int j0 = (c * 32 + lane) * W;
+    float rv[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      rv[k] = r[j0 + k];
+      prev[k] = kBig;
+      sprev[k] = kNoWindow;
+    }
+    const float* rd = strip + (c & 1) * m;
+    float* wr = strip + ((c + 1) & 1) * m;
+    const int* srd = sstrip + (c & 1) * m;
+    int* swr = sstrip + ((c + 1) & 1) * m;
+
+    // left / upleft of my first cell; lane 0 reads the strip (chunk > 0)
+    // or the column -1 edge sentinel
+    float left = (lane == 0 && c > 0) ? rd[0] : kBig;
+    float upleft = kBig;
+    int sleft = (WINDOW && lane == 0 && c > 0) ? srd[0] : kNoWindow;
+    int supleft = kNoWindow;
+
+    for (int t = 0; t < m + 31; ++t) {
+      const int i = t - lane;
+      const float qv = qb[min(max(i, 0), m - 1)];
+      float lft = left, ul = upleft;
+      int slft = sleft, sul = supleft;
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        const int j = j0 + k;
+        const float d = __fsub_rn(qv, rv[k]);
+        const float cst = ABS ? fabsf(d) : __fmul_rn(d, d);
+        const float up = prev[k];
+        float val;
+        int s = 0;
+        if (i == 0) {
+          val = cst;                          // free start: D[-1, j] = 0
+          if (WINDOW) s = j;
+        } else {
+          val = __fadd_rn(cst, fminf(fminf(lft, up), ul));
+          if (WINDOW) {
+            s = (up < lft) ? sprev[k] : slft;
+            s = (ul < fminf(lft, up)) ? sul : s;
+          }
+        }
+        if (BAND && abs(i - j) > band) {
+          val = kBig;                         // out of band: never folded
+          if (WINDOW) s = kNoWindow;
+        } else if (i == m - 1 && j < n && val < best_v) {
+          best_v = val;
+          best_j = j;
+          if (WINDOW) best_s = s;
+        }
+        ul = up;
+        prev[k] = val;
+        lft = val;
+        if (WINDOW) {
+          sul = sprev[k];
+          sprev[k] = s;
+          slft = s;
+        }
+      }
+      // my last cell is the left neighbour of lane+1's first cell next step
+      const float from_left = __shfl_up_sync(kFull, lft, 1);
+      int sfrom_left = 0;
+      if (WINDOW) sfrom_left = __shfl_up_sync(kFull, slft, 1);
+      if (lane == 31 && i >= 0 && i < m) {
+        wr[i] = lft;
+        if (WINDOW) swr[i] = slft;
+      }
+      upleft = left;
+      supleft = sleft;
+      if (lane == 0) {
+        const bool from_strip = c > 0 && t + 1 < m;
+        left = from_strip ? rd[t + 1] : kBig;
+        if (WINDOW) sleft = from_strip ? srd[t + 1] : kNoWindow;
+      } else {
+        left = from_left;
+        if (WINDOW) sleft = sfrom_left;
+      }
+      // Keep this barrier.  Without it nvcc 12.8 (-O3, sm_90a) split the
+      // step loop into a copy for chunk 0 and a copy for later chunks,
+      // and the chunk-0 copy stored lane 31's column at strip + i instead
+      // of strip + m + i (its SASS store address lacks the m term), so
+      // chunk 1 read stale shared memory: wrong, run-dependent results.
+      // With the barrier the loop stays one body and every instantiation
+      // matches the plain version (chip_smoke.py, phase 3).
+      __syncwarp();
+    }
+    __syncwarp();
+  }
+
+  // lexicographic (value, column) reduction: the earliest column wins
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_down_sync(kFull, best_v, off);
+    const int oj = __shfl_down_sync(kFull, best_j, off);
+    const int os = __shfl_down_sync(kFull, best_s, off);
+    if (ov < best_v || (ov == best_v && oj < best_j)) {
+      best_v = ov;
+      best_j = oj;
+      best_s = os;
+    }
+  }
+  if (lane == 0) {
+    cost_out[blockIdx.x] = best_v;
+    end_out[blockIdx.x] = best_j;
+    if (WINDOW) start_out[blockIdx.x] = best_s;
+  }
+}
+
+template <int W, bool WINDOW, bool BAND, bool ABS>
+int launch(const float* q, const float* r, int batch, int m, int n,
+           int chunks, int band, float* cost, int* end, int* start,
+           cudaStream_t stream) {
+  const size_t smem = (WINDOW ? 4 : 2) * sizeof(float) * static_cast<size_t>(m);
+  auto kernel = wavefront_kernel<W, WINDOW, BAND, ABS>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<batch, 32, smem, stream>>>(q, r, m, n, chunks, band, cost, end,
+                                      start);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int W>
+int dispatch(const float* q, const float* r, int batch, int m, int n,
+             int chunks, int band, int window, int abs_dist, float* cost,
+             int* end, int* start, cudaStream_t s) {
+  const bool banded = band >= 0;
+#define REPRO_CASE(WIN, BND, ABSD)                                        \
+  if (!!window == WIN && banded == BND && !!abs_dist == ABSD)             \
+    return launch<W, WIN, BND, ABSD>(q, r, batch, m, n, chunks, band,     \
+                                     cost, end, start, s);
+  REPRO_CASE(false, false, false)
+  REPRO_CASE(false, false, true)
+  REPRO_CASE(false, true, false)
+  REPRO_CASE(false, true, true)
+  REPRO_CASE(true, false, false)
+  REPRO_CASE(true, false, true)
+  REPRO_CASE(true, true, false)
+  REPRO_CASE(true, true, true)
+#undef REPRO_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q: (batch, m) f32; r: (chunks_total * 32 * width,) f32, zero-padded past
+// n; the kernel visits the first `chunks` chunks.  band < 0: unbanded.
+// cost (batch,) f32, end (batch,) i32, start (batch,) i32 (window only).
+// Returns cudaGetLastError() (cudaErrorInvalidValue for a width with no
+// instantiation).
+int wavefront_launch(const void* q, const void* r, int batch, int m, int n,
+                     int chunks, int band, int width, int window,
+                     int abs_dist, void* cost, void* end, void* start,
+                     void* stream) {
+  const float* qf = static_cast<const float*>(q);
+  const float* rf = static_cast<const float*>(r);
+  float* c = static_cast<float*>(cost);
+  int* e = static_cast<int*>(end);
+  int* st = static_cast<int*>(start);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (width) {
+    case 2: return dispatch<2>(qf, rf, batch, m, n, chunks, band, window, abs_dist, c, e, st, s);
+    case 4: return dispatch<4>(qf, rf, batch, m, n, chunks, band, window, abs_dist, c, e, st, s);
+    case 8: return dispatch<8>(qf, rf, batch, m, n, chunks, band, window, abs_dist, c, e, st, s);
+    case 14: return dispatch<14>(qf, rf, batch, m, n, chunks, band, window, abs_dist, c, e, st, s);
+    case 16: return dispatch<16>(qf, rf, batch, m, n, chunks, band, window, abs_dist, c, e, st, s);
+    case 32: return dispatch<32>(qf, rf, batch, m, n, chunks, band, window, abs_dist, c, e, st, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+const char* error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

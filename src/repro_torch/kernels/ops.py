@@ -1,0 +1,115 @@
+"""The public wrappers of the port's kernels: segment-width policy, the
+reference layout, the static blocked-band answer and the clamp of
+indices to the true reference.
+
+Counterpart of ``repro.kernels.ops``.  The contract is ported, not the
+TPU layout: no (8, 128) packing, no swizzle, no ``PAD_VALUE`` columns;
+the wavefront takes a zero-padded 1-D reference and guards ``j < n``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.spec import DEFAULT_SPEC, NO_WINDOW, DPSpec
+from repro_torch.kernels import wavefront
+
+DEFAULT_SEGMENT_WIDTH = 8
+#   The untuned reference cells per lane (the paper's thread-coarsening
+#   knob w, Fig. 3).
+DEFAULT_WIDTH_CANDIDATES = wavefront.WIDTHS
+#   (2, 4, 8, 14, 16, 32): the paper's sweep points, each a kernel
+#   instantiation.
+
+
+def ceil_to(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def validate_segment_width(w) -> int:
+    """A positive int (bools rejected) that the kernel is built for."""
+    if isinstance(w, bool) or not isinstance(w, int):
+        raise ValueError(f"segment_width must be an int >= 1, got {w!r} "
+                         f"('auto' waits for the tuning slice)")
+    if w < 1:
+        raise ValueError(f"segment_width must be >= 1, got {w}")
+    if w not in DEFAULT_WIDTH_CANDIDATES:
+        raise ValueError(
+            f"segment_width={w} has no wavefront kernel instantiation; "
+            f"choose one of {DEFAULT_WIDTH_CANDIDATES}")
+    return w
+
+
+def width_candidates(n: int, candidates=None) -> tuple:
+    """Validated, sorted, deduplicated widths for a reference of length
+    ``n``; widths whose padded layout is more than 4x the reference are
+    dropped, and the smallest candidate always survives."""
+    if n < 1:
+        raise ValueError(f"reference length must be >= 1, got {n}")
+    cands = sorted({validate_segment_width(w) for w in
+                    (DEFAULT_WIDTH_CANDIDATES if candidates is None
+                     else candidates)})
+    if not cands:
+        raise ValueError("empty segment-width candidate set")
+    kept = [w for w in cands if ceil_to(n, wavefront.chunk_cols(w)) <= 4 * n]
+    return tuple(kept) if kept else (cands[0],)
+
+
+def prepare_reference(reference: torch.Tensor,
+                      segment_width: int) -> torch.Tensor:
+    """The kernel's reference layout for one width."""
+    return wavefront.prepare_reference(
+        reference, validate_segment_width(segment_width))
+
+
+def band_blocked(m: int, n: int, band: int | None) -> bool:
+    """True when the band excludes every bottom-row cell: row m-1 has no
+    column within ``band`` of it inside [0, n)."""
+    return band is not None and m - 1 - band > n - 1
+
+
+def sdtw_wavefront_prepped(queries: torch.Tensor, r_layout: torch.Tensor,
+                           *, n: int, segment_width: int = 8,
+                           spec: DPSpec | None = None,
+                           return_window: bool = False):
+    """Run the wavefront on a prepared reference layout.
+
+    queries: (B, M) float32 on the layout's device; n: the true reference
+    length.  Returns (costs (B,) f32, ends (B,) i32), or (costs, starts,
+    ends), with indices clamped to ``n - 1`` (``NO_WINDOW`` kept).  A
+    band that blocks every bottom-row cell is answered without a launch:
+    +inf, end 0, ``NO_WINDOW`` start — the engine's answer.
+    """
+    sp = DEFAULT_SPEC if spec is None else spec
+    w = validate_segment_width(segment_width)
+    B, m = queries.shape
+    if band_blocked(m, n, sp.band):
+        dev = queries.device
+        costs = torch.full((B,), float("inf"), dtype=torch.float32,
+                           device=dev)
+        ends = torch.zeros((B,), dtype=torch.int32, device=dev)
+        if return_window:
+            return costs, torch.full((B,), NO_WINDOW, dtype=torch.int32,
+                                     device=dev), ends
+        return costs, ends
+    out = wavefront.wavefront(queries, r_layout, n=n, w=w, spec=sp,
+                              with_window=return_window)
+    if return_window:
+        costs, starts, ends = out
+        return (costs, torch.clamp(starts, NO_WINDOW, n - 1),
+                torch.clamp(ends, max=n - 1))
+    costs, ends = out
+    return costs, torch.clamp(ends, max=n - 1)
+
+
+def sdtw_wavefront(queries: torch.Tensor, reference: torch.Tensor, *,
+                   segment_width: int = 8, spec: DPSpec | None = None,
+                   return_window: bool = False):
+    """One-shot wavefront: layout + dispatch.  queries (B, M), reference
+    (N,), both float32 on one device."""
+    layout = prepare_reference(reference, segment_width)
+    return sdtw_wavefront_prepped(
+        queries.to(torch.float32).contiguous(), layout,
+        n=reference.shape[0], segment_width=segment_width, spec=spec,
+        return_window=return_window)
+

@@ -12,3 +12,9 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the repro_torch kernels); "
+        "skipped elsewhere, run on the H100 with -m gpu")

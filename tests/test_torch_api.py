@@ -1,0 +1,180 @@
+"""The port's front door and session against the JAX package's:
+repro_torch.sdtw / Aligner (device="cpu") vs repro.sdtw / repro.Aligner,
+the state carried across by repro_torch.convert, and the port's
+capability and validation errors."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+pytest.importorskip("jax")   # every test here runs the JAX package too
+
+import repro  # noqa: E402
+import repro_torch  # noqa: E402
+from repro.core.normalize import normalize_batch as jax_normalize_batch  # noqa: E402,E501
+from repro.core.spec import DPSpec as JaxSpec  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core.spec import NotPortedError  # noqa: E402
+
+TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+def _inputs(b, m, n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, m)).astype(np.float32) * 2 + 1,
+            rng.normal(size=(n,)).astype(np.float32) * 3 - 2)
+
+
+def _same(port, jax_res, outputs):
+    np.testing.assert_allclose(port.cost.numpy(), np.asarray(jax_res.cost),
+                               **TOL)
+    np.testing.assert_array_equal(port.end.numpy(), np.asarray(jax_res.end))
+    if "start" in outputs:
+        np.testing.assert_array_equal(port.start.numpy(),
+                                      np.asarray(jax_res.start))
+    else:
+        assert port.start is None
+
+
+@pytest.mark.parametrize("backend", ["kernel", "engine"])
+@pytest.mark.parametrize("outputs", [("cost", "end"),
+                                     ("cost", "start", "end")])
+@pytest.mark.parametrize("band,distance", [(None, "sqeuclidean"),
+                                           (7, "abs")])
+def test_sdtw_matches_repro(backend, outputs, band, distance):
+    q, r = _inputs(5, 24, 300, seed=1)
+    want = repro.sdtw(q, r, outputs=outputs, backend="engine", band=band,
+                      distance=distance)
+    got = repro_torch.sdtw(q, r, outputs=outputs, backend=backend,
+                           band=band, distance=distance, segment_width=4,
+                           device="cpu")
+    assert got.present == frozenset(outputs)
+    _same(got, want, outputs)
+
+
+def test_sdtw_ref_backend_and_auto_selection():
+    q, r = _inputs(2, 8, 60, seed=2)
+    want = repro.sdtw(q, r, outputs=("cost", "start", "end"), backend="ref")
+    got = repro_torch.sdtw(q, r, outputs=("cost", "start", "end"),
+                           backend="ref", device="cpu")
+    _same(got, want, ("start",))
+    auto = repro_torch.sdtw(q, r, device="cpu")
+    _same(auto, want, ())
+    from repro_torch.backends import registry
+    assert registry.select(repro_torch.DPSpec(),
+                           device=torch.device("cpu")).name == "engine"
+    assert registry.select(repro_torch.DPSpec(),
+                           device=torch.device("cuda")).name == "kernel"
+
+
+@pytest.mark.parametrize("band", [None, 12])
+def test_aligner_from_jax_session(band):
+    r = _inputs(1, 1, 400, seed=3)[1]
+    jax_al = repro.Aligner(r, backend="engine", band=band)
+    port_al = convert.aligner_from_numpy(
+        np.asarray(jax_al.reference), dataclasses.asdict(jax_al.spec),
+        device="cpu", segment_width=8, backend="kernel")
+    assert port_al.normalize is False
+    np.testing.assert_array_equal(port_al.reference.numpy(),
+                                  np.asarray(jax_al.reference))
+    for i, outputs in enumerate([("cost", "end"), ("cost", "start", "end"),
+                                 ("cost", "end")]):
+        q = _inputs(3 + i, 30, 1, seed=10 + i)[0]
+        want = jax_al(q, outputs=outputs)
+        got = port_al(np.asarray(jax_normalize_batch(q)), outputs=outputs)
+        _same(got, want, outputs)
+    assert port_al.stats.as_dict() == {"calls": 3, "layout_builds": 1}
+
+
+def test_aligner_normalizes_reference_once():
+    q, r = _inputs(4, 20, 250, seed=4)
+    al = repro_torch.Aligner(r, backend="kernel", segment_width=2,
+                             device="cpu")
+    one_shot = repro_torch.sdtw(q, r, backend="kernel", segment_width=2,
+                                outputs=("cost", "start", "end"),
+                                device="cpu")
+    for _ in range(2):
+        res = al(q, outputs=("cost", "start", "end"))
+        for name in ("cost", "start", "end"):
+            assert torch.equal(getattr(res, name), getattr(one_shot, name))
+    assert al.stats.calls == 2 and al.stats.layout_builds == 1
+
+
+def test_spec_from_dict():
+    d = dataclasses.asdict(JaxSpec(distance="abs", band=5))
+    spec = convert.spec_from_dict(d)
+    assert dataclasses.asdict(spec) == d
+    with pytest.raises(NotPortedError, match="slice 2"):
+        convert.spec_from_dict(dataclasses.asdict(
+            JaxSpec(reduction="softmin")))
+    with pytest.raises(NotPortedError, match="slice 4"):
+        convert.spec_from_dict(dataclasses.asdict(JaxSpec(family="twed")))
+    with pytest.raises(ValueError, match="unknown DPSpec field"):
+        convert.spec_from_dict({**d, "mystery": 1})
+
+
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(reduction="softmin"), NotPortedError, "slice 2"),
+    (dict(gamma=0.5), NotPortedError, "slice 2"),
+    (dict(family="erp"), NotPortedError, "slice 4"),
+    (dict(outputs=("cost", "path")), NotPortedError, "slice 3"),
+    (dict(outputs="soft_alignment"), NotPortedError, "slice 2"),
+    (dict(distance="cosine", backend="kernel"), ValueError,
+     r"backend 'kernel' does not support distance 'cosine'.*\['engine', "
+     r"'ref'\]"),
+    (dict(outputs="bogus"), ValueError, "unknown output"),
+    (dict(backend="quantized"), ValueError, "unknown backend"),
+])
+def test_capability_errors(kwargs, error, match):
+    q, r = _inputs(2, 8, 40, seed=5)
+    with pytest.raises(error, match=match):
+        repro_torch.sdtw(q, r, device="cpu", **kwargs)
+
+
+def test_cosine_runs_on_the_engine():
+    """Scalar cosine costs are near 0 or near 2, so the bottom row is
+    full of near-ties and the end follows rounding: the end is held to
+    the port's own row-scan ref, the cost to repro."""
+    q, r = _inputs(2, 8, 40, seed=6)
+    want = repro.sdtw(q, r, distance="cosine", backend="engine")
+    got = repro_torch.sdtw(q, r, distance="cosine", device="cpu")
+    ref = repro_torch.sdtw(q, r, distance="cosine", device="cpu",
+                           backend="ref")
+    np.testing.assert_allclose(got.cost.numpy(), np.asarray(want.cost),
+                               **TOL)
+    np.testing.assert_array_equal(got.end.numpy(), ref.end.numpy())
+
+
+@pytest.mark.parametrize("width,error,match", [
+    (True, ValueError, "int >= 1"), (0, ValueError, ">= 1"),
+    (-2, ValueError, ">= 1"), (2.0, ValueError, "int >= 1"),
+    (3, ValueError, "no wavefront kernel instantiation"),
+    ("auto", NotPortedError, "slice 7"),
+])
+def test_segment_width_validation(width, error, match):
+    q, r = _inputs(2, 8, 40, seed=7)
+    with pytest.raises(error, match=match):
+        repro_torch.sdtw(q, r, segment_width=width, device="cpu")
+    with pytest.raises(error, match=match):
+        repro_torch.Aligner(r, segment_width=width, device="cpu")
+
+
+def test_input_shape_errors():
+    q, r = _inputs(2, 8, 40, seed=8)
+    with pytest.raises(ValueError, match="queries must be 2-D"):
+        repro_torch.sdtw(q[0], r, device="cpu")
+    with pytest.raises(ValueError, match="reference must be 1-D"):
+        repro_torch.sdtw(q, q, device="cpu")
+    with pytest.raises(ValueError, match="empty query batch"):
+        repro_torch.sdtw(q[:0], r, device="cpu")
+    with pytest.raises(ValueError, match="empty reference"):
+        repro_torch.Aligner(r[:0], device="cpu")
+
+
+def test_result_helpers():
+    res = repro_torch.SDTWResult(cost=1, end=2, start=3)
+    assert res.present == {"cost", "end", "start"}
+    assert res.restrict(("cost",)) == repro_torch.SDTWResult(cost=1)
+    assert res.window() == (1, 3, 2)
+    assert res.replace(end=5).end == 5

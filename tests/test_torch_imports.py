@@ -1,0 +1,106 @@
+"""The port stands alone: no module of repro_torch (nor chip_smoke.py)
+imports jax or repro; its entry points never run on the CPU unless
+asked; a CUDA tensor never reaches a plain version."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.kernels import build, normalizer, wavefront
+
+ROOT = Path(__file__).resolve().parents[1]
+GUARD = r"""
+import importlib, pkgutil, sys
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"repro_torch must not import {name}")
+        return None
+sys.meta_path.insert(0, Refuse())
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert not any(k.split(".")[0] in ("jax", "repro") for k in sys.modules)
+print(len(names))
+"""
+
+
+def test_no_jax_and_no_repro_in_the_port():
+    out = subprocess.run(
+        [sys.executable, "-c", GUARD, str(ROOT / "src"), str(ROOT)],
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+class _CardTensor:
+    """Stands in for a CUDA tensor: the dispatch reads only .device."""
+    device = torch.device("cuda")
+
+
+def _forbid(*_, **__):
+    raise AssertionError("a plain version ran")
+
+
+def test_no_device_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(normalizer, "normalize_plain", _forbid)
+    monkeypatch.setattr(wavefront, "wavefront_plain", _forbid)
+    q = np.zeros((2, 8), np.float32)
+    r = np.arange(40, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.sdtw(q, r)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.Aligner(r)
+
+
+def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(normalizer, "normalize_plain", _forbid)
+    monkeypatch.setattr(wavefront, "wavefront_plain", _forbid)
+    monkeypatch.setattr(wavefront, "validate", lambda *a, **k: None)
+    launched = []
+    monkeypatch.setattr(normalizer, "normalize_cuda",
+                        lambda x, eps: launched.append("K2") or x)
+    monkeypatch.setattr(wavefront, "wavefront_cuda",
+                        lambda *a, **k: launched.append("K1") or a)
+    card = _CardTensor()
+    assert build.on_card(card)
+    normalizer.normalize(card)
+    wavefront.wavefront(card, card, n=1, w=8, spec=repro_torch.DPSpec())
+    assert launched == ["K2", "K1"]
+
+
+def test_cpu_tensor_takes_the_plain_version(monkeypatch):
+    monkeypatch.setattr(normalizer, "normalize_cuda", _forbid)
+    monkeypatch.setattr(wavefront, "wavefront_cuda", _forbid)
+    x = torch.ones(2, 5)
+    assert not build.on_card(x)
+    torch.testing.assert_close(normalizer.normalize(x), torch.zeros(2, 5))
+    with pytest.raises(ValueError, match="unsupported device"):
+        build.on_card(torch.ones(1, device="meta"))
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """Alone, or with no card, chip_smoke.py exits non-zero and prints no
+    verdict.  The card is hidden from the subprocess, so the check holds
+    on a machine that has one too."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    for script in (ROOT / "chip_smoke.py", alone):
+        out = subprocess.run([sys.executable, str(script)],
+                             capture_output=True, text=True, timeout=120,
+                             cwd=script.parent, env=env)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
