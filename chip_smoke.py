@@ -25,9 +25,35 @@ Phases, one JSON line each:
      path (``repro_torch.sdtw(..., band=900)``, K4) on the same data,
      its counts read on their own, bit for bit against the plain version;
   5. times from CUDA events (warm): K1, K3 and K4 at PAPER, every width,
-     K2, a warm ``Aligner`` call; the plain versions' times and the K2
-     yardstick ``torch.nn.functional.layer_norm``; each kernel's bound;
-  6. the ``kernels`` line.
+     K2 (on the batch and on the reference), a warm ``Aligner`` call;
+     the plain versions' times and the K2 yardstick
+     ``torch.nn.functional.layer_norm``; each kernel's bound;
+  6. ``soft_parity``: K5 and both K6 sweeps against their plain versions
+     on every width, gamma 0.01 / 0.1 / 1.0, bands None, 0, 64 and 900,
+     B 1 and 9, both distances, on references of several chunks whose
+     last chunk is partly padding (every one of the 48 soft
+     instantiations runs on a multi-chunk sweep): cost and strips within
+     atol = rtol = 1e-4, ends equal, the reverse cost readout within
+     1e-5 of the forward cost, and a blocked band answered with no
+     launch;
+  7. ``soft_main_path``: ``repro_torch.sdtw`` and an ``Aligner`` under
+     ``DPSpec(reduction="softmin")`` (gamma 1.0) at full PAPER width,
+     launch counts (K2, K5), all 512 costs within 1e-4 of the plain
+     version, every end a column whose plain bottom-row value is within
+     1e-4 of the plain minimum (exact misses counted);
+  8. ``train_path``: ``repro_torch.train.make_sdtw_loss`` at the soft
+     backward's full shape (B 256, M 256, N 8,192, w 8, gamma 0.5,
+     normalize, mean): gradients to the predictions and the reference
+     against engine autograd on the card (atol = rtol = 1e-4, and each
+     nonzero and within 1e-4 of it in relative norm), the fused
+     pass's peak memory below B*M*N*4 bytes, 5 SGD steps (lr 0.1 * B)
+     after which the loss has dropped, launch counts per step;
+  9. ``soft_alignment``: E from the fused path against ``align.soft``
+     (engine autograd) at B 4, M 64, N 2,048, atol = rtol = 1e-4, with
+     each row's mass;
+ 10. ``soft_times``: K5, K6-forward and K6-reverse at PAPER, K6 and the
+     tile pass at the training shape, plain versions, bounds;
+ 11. the ``kernels`` line.
 The last line is the verdict ``{"ok": true, "device": {...}}``, printed
 only when every phase passed on the card.  Any failure raises and exits
 non-zero.  With no card (and no ``--cpu``) the script exits 1 at once.
@@ -55,6 +81,20 @@ K1_OPS_PER_CELL = 5      # sub, mul (or abs), min, min, add
 K3_OPS_PER_CELL = 8      # + the start pointer's two compares and select
 K2_OPS_PER_ELEMENT = 4   # sum, sum of squares, subtract, multiply
 BAND = 900               # the banded path's Sakoe-Chiba half-width
+# A soft cell in min-shifted form: one of the three exponent arguments is
+# (mn - mn) / gamma = 0, so the function needs two exponentials and one
+# logarithm.  FP32: sub, mul (cost); min, min; two (sub, mul) exponent
+# arguments; two adds (1 + e1 + e2); a multiply by gamma, a sub and the
+# final add: 13 operations.  Special-function units (MUFU, 16 lanes per
+# SM per clock): the two exponentials and the logarithm as one lg2 each,
+# 3 operations.  The logarithm is counted on MUFU because that is its
+# cheapest form; CUDA's full-accuracy logf, which the kernel calls, is an
+# FMA polynomial of more FP32 operations than the one MUFU op it saves.
+SOFT_FP32_OPS_PER_CELL = 13
+SOFT_MUFU_OPS_PER_CELL = 3
+MUFU_LANES = 132 * 16
+PAPER_GAMMA = 1.0        # the DPSpec default
+TRAIN_STEPS = 5
 
 
 def emit(obj) -> None:
@@ -101,8 +141,9 @@ def ptxas_summary(logs: dict) -> dict:
                 current = {"entry": m.group(1)}
                 t = re.search(r"ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", m.group(1))
                 if t:
+                    second = "reverse" if "soft" in m.group(1) else "window"
                     current.update(w=int(t.group(1)),
-                                   window=bool(int(t.group(2))),
+                                   **{second: bool(int(t.group(2)))},
                                    band=bool(int(t.group(3))),
                                    abs=bool(int(t.group(4))))
                 rows.append(current)
@@ -176,6 +217,453 @@ class Timer:
         e1.record()
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
+
+
+def least_time(c, n_bytes: float, fp32_ops: float, mufu_ops: float = 0.0):
+    """Least time (ms) and what bounds it: bytes over the memory rate
+    against FP32 operations over the lane issue rate and special-function
+    operations over the MUFU rate, both at the card's maximum SM clock."""
+    if not c.cuda:
+        return None, "operations"
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(fp32_ops / c.lane_ops_per_s,
+                mufu_ops / (MUFU_LANES * c.clock_max * 1e6)) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                 else "operations")
+
+
+def soft_spec(gamma: float, band=None, distance: str = "sqeuclidean"):
+    from repro_torch.core.spec import DPSpec
+    return DPSpec(reduction="softmin", gamma=gamma, band=band,
+                  distance=distance)
+
+
+def soft_parity(c) -> None:
+    """Phase 6: K5 and both K6 sweeps against their plain versions."""
+    np, torch = c.np, c.torch
+    from repro_torch.core.normalize import normalize_batch
+    from repro_torch.kernels import ops, wavefront
+    rng = np.random.default_rng(c.seed + 2)
+
+    def series(*shape):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return normalize_batch(x.to(c.dev))
+
+    # (B, m, gamma, band, distance): with the widths, every soft
+    # instantiation (width x reverse x band x distance) runs on a sweep
+    # of at least two chunks; band 900 is what makes the banded sweeps
+    # of the wide widths multi-chunk (m - 1 + 900 >= 32 * w)
+    cases = [(9, 33, 0.01, None, "sqeuclidean"), (1, 33, 0.1, 0, "abs"),
+             (9, 200, 1.0, 64, "sqeuclidean"), (1, 200, 1.0, None, "abs"),
+             (9, 200, 0.1, 900, "abs"), (1, 200, 0.01, 900, "sqeuclidean")]
+    widths = wavefront.WIDTHS if c.cuda else (2, 4)
+    checked = mismatches = 0
+    worst = {"cost": 0.0, "strips": 0.0, "reverse_vs_forward": 0.0}
+    before = wavefront.soft_counter.count
+    for w in widths:
+        W = wavefront.chunk_cols(w)
+        n = 2 * W + W // 2 + 3          # three chunks, the last part pad
+        for B, m, gamma, band, distance in cases:
+            spec = soft_spec(gamma, band, distance)
+            q, r = series(B, m), series(n)
+            lay = ops.prepare_reference(r, w)
+            rlay = ops.prepare_reference_reverse(r, w)
+            qf = torch.flip(q, (1,)).contiguous()
+            got = {"K5": wavefront.soft_wavefront(q, lay, n=n, w=w,
+                                                  spec=spec),
+                   "K6-forward": wavefront.soft_checkpoint(
+                       q, lay, n=n, w=w, spec=spec),
+                   "K6-reverse": wavefront.soft_checkpoint(
+                       qf, rlay, n=n, w=w, spec=spec, reverse=True)}
+            want = {"K5": wavefront.soft_plain(q, lay, n=n, w=w, spec=spec),
+                    "K6-forward": wavefront.checkpoint_plain(
+                        q, lay, n=n, w=w, spec=spec),
+                    "K6-reverse": wavefront.checkpoint_plain(
+                        qf, rlay, n=n, w=w, spec=spec, reverse=True)}
+            c.sync()
+            for name in got:
+                a, b = got[name], want[name]
+                ok = bool(torch.allclose(a[0], b[0], rtol=1e-4, atol=1e-4))
+                worst["cost"] = max(worst["cost"],
+                                    float((a[0] - b[0]).abs().max()))
+                if name != "K6-reverse":      # the reverse end is unused
+                    ok = ok and torch.equal(a[1], b[1])
+                if name != "K5":
+                    ok = ok and bool(torch.allclose(a[2], b[2], rtol=1e-4,
+                                                    atol=1e-4))
+                    worst["strips"] = max(
+                        worst["strips"], float((a[2] - b[2]).abs().max()))
+                checked += 1
+                if not ok:
+                    mismatches += 1
+                    emit({"phase": "soft_mismatch", "kernel": name, "w": w,
+                          "B": B, "m": m, "n": n, "gamma": gamma,
+                          "band": band, "distance": distance,
+                          "got": [x.flatten()[:4].tolist() for x in a],
+                          "want": [x.flatten()[:4].tolist() for x in b]})
+            fwd, rev = got["K6-forward"][0], got["K6-reverse"][0]
+            rel = float(((rev - fwd).abs() / fwd.abs().clamp(min=1.0)).max())
+            worst["reverse_vs_forward"] = max(worst["reverse_vs_forward"],
+                                              rel)
+            if rel > 1e-5:
+                mismatches += 1
+                emit({"phase": "soft_reverse_readout_mismatch", "w": w,
+                      "B": B, "m": m, "gamma": gamma, "band": band,
+                      "relative": rel})
+    launches = wavefront.soft_counter.count - before
+    # a band that blocks every bottom-row cell: +inf, end 0, no launch
+    spec = soft_spec(1.0, 0)
+    q, r = series(3, 200), series(50)
+    out = ops.sdtw_wavefront_prepped(q, ops.prepare_reference(r, 2), n=50,
+                                     segment_width=2, spec=spec)
+    c.sync()
+    blocked_ok = (wavefront.soft_counter.count == before + launches
+                  and bool(torch.isinf(out[0]).all())
+                  and bool((out[1] == 0).all()))
+    emit({"phase": "soft_parity", "rule": "cost and strips within "
+          "atol=rtol=1e-4 of the plain version, ends equal, reverse "
+          "readout within 1e-5 (relative) of the forward cost",
+          "cases": checked, "mismatches": mismatches,
+          "launches": launches, "widths": list(widths),
+          "worst": worst, "blocked_band_no_launch": blocked_ok})
+    require(mismatches == 0, f"{mismatches} soft kernel cases differ from "
+                             f"the plain version")
+    require(blocked_ok, "blocked soft band launched or answered wrong")
+
+
+def soft_main_path(c, queries_np, ref_np, planted) -> dict:
+    """Phase 7: soft-min sDTW at PAPER through the front door."""
+    torch = c.torch
+    import repro_torch
+    from repro_torch.core.engine import sdtw_engine
+    from repro_torch.core.normalize import normalize_batch
+    from repro_torch.kernels import normalizer, wavefront
+    cfg = c.cfg
+    w, m, n, B = cfg.segment_width, cfg.query_len, cfg.ref_len, cfg.batch
+    spec = soft_spec(PAPER_GAMMA)
+    for counter in (normalizer.counter, wavefront.counter,
+                    wavefront.soft_counter):
+        counter.reset()
+    t0 = time.perf_counter()
+    res = repro_torch.sdtw(queries_np, ref_np, spec=spec, segment_width=w,
+                           device=c.dev, backend=c.backend)
+    aligner = repro_torch.Aligner(ref_np, spec=spec, segment_width=w,
+                                  device=c.dev, backend=c.backend)
+    al = aligner(queries_np)
+    c.sync()
+    seconds = time.perf_counter() - t0
+    launches = {"normalizer": normalizer.counter.count,
+                "soft_wavefront": dict(wavefront.soft_counter.by_variant),
+                "wavefront": dict(wavefront.counter.by_variant)}
+    require(not c.cuda or launches == {"normalizer": 4, "wavefront": {},
+                                       "soft_wavefront": {"K5": 2}},
+            f"soft main path launches {launches}: want 4 normalizer and "
+            f"K5 twice")
+    for out in (res.cost, res.end, al.cost, al.end):
+        require(tuple(out.shape) == (B,), f"output shape {out.shape}")
+    require(bool(torch.isfinite(res.cost).all()), "non-finite soft cost")
+    require(torch.equal(res.cost, al.cost) and torch.equal(res.end, al.end),
+            "soft sdtw and Aligner disagree")
+    qn = normalize_batch(torch.from_numpy(queries_np).to(c.dev))
+    layout = aligner.layout()
+    c.sync()
+    t0 = time.perf_counter()
+    p_cost, p_end, bottom = sdtw_engine(qn, layout, spec=spec, n_valid=n,
+                                        return_bottom=True)
+    c.sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((res.cost - p_cost).abs().max())
+    require(bool(torch.allclose(res.cost, p_cost, rtol=1e-4, atol=1e-4)),
+            f"K5 costs differ from the plain version (max abs {err})")
+    # an end must name a column whose plain bottom value is within the
+    # tolerance of the plain minimum
+    at_end = bottom.gather(1, res.end.long()[:, None])[:, 0]
+    low = bottom.min(dim=1).values
+    near = at_end <= low + 1e-4 + 1e-4 * low.abs()
+    require(bool(near.all()), f"{int((~near).sum())} K5 ends off the "
+                              f"plain bottom-row minimum")
+    planted_t = torch.from_numpy(planted).to(c.dev)
+    info = {"phase": "soft_main_path", "gamma": PAPER_GAMMA,
+            "workload": {"batch": B, "query_len": m, "ref_len": n,
+                         "segment_width": w},
+            "seconds": seconds, "backend": aligner.backend.name,
+            "launches": launches, "max_abs_err": err,
+            "plain_ms": plain_ms,
+            "end_exact_misses": int((res.end != p_end).sum()),
+            "end_at_planted": int((res.end.long()
+                                   == planted_t + m - 1).sum())}
+    t0 = time.perf_counter()
+    aligner(queries_np)
+    c.sync()
+    info["aligner_warm_call_ms"] = (time.perf_counter() - t0) * 1e3
+    emit(info)
+    info.update(qn=qn, layout=layout, aligner=aligner, spec=spec)
+    return info
+
+
+def train_inputs(c):
+    """Predictions and a random-walk reference at the training shape,
+    from the seed."""
+    from repro_torch.configs.paper_sdtw import SDTWWorkload, SOFT_TRAIN
+    cfg = SOFT_TRAIN if c.cuda else SDTWWorkload(batch=8, query_len=32,
+                                                  ref_len=600)
+    rng = c.np.random.default_rng(c.seed + 3)
+    pred = rng.normal(size=(cfg.batch, cfg.query_len)).astype(c.np.float32)
+    ref = c.np.cumsum(rng.normal(size=cfg.ref_len)).astype(c.np.float32)
+    return cfg, pred, ref
+
+
+def train_path(c) -> dict:
+    """Phase 8: make_sdtw_loss at the training shape: gradients against
+    engine autograd, peak memory, 5 SGD steps."""
+    torch = c.torch
+    from repro_torch.configs.paper_sdtw import SOFT_TRAIN_GAMMA
+    from repro_torch.kernels import normalizer, wavefront
+    from repro_torch.train.step import make_sdtw_loss
+    cfg, pred_np, ref_np = train_inputs(c)
+    B, M, N, w = cfg.batch, cfg.query_len, cfg.ref_len, cfg.segment_width
+    gamma = SOFT_TRAIN_GAMMA
+
+    def leaves():
+        return (torch.from_numpy(pred_np).to(c.dev).requires_grad_(),
+                torch.from_numpy(ref_np).to(c.dev).requires_grad_())
+
+    def grads(backend):
+        pred, ref = leaves()
+        loss_fn = make_sdtw_loss(ref, gamma=gamma, segment_width=w,
+                                 device=c.dev, backend=backend)
+        c.sync()
+        t0 = time.perf_counter()
+        loss = loss_fn(pred)
+        loss.backward()
+        c.sync()
+        return loss.detach(), pred.grad, ref.grad, \
+            (time.perf_counter() - t0) * 1e3
+
+    cells_bytes = B * M * N * 4
+    if c.cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    fused = grads(c.backend)
+    peak = torch.cuda.max_memory_allocated() if c.cuda else None
+    plain = grads("engine")
+    errs = {"loss": float((fused[0] - plain[0]).abs()),
+            "d_pred": float((fused[1] - plain[1]).abs().max()),
+            "d_reference": float((fused[2] - plain[2]).abs().max())}
+    close = all(bool(torch.allclose(a, b, rtol=1e-4, atol=1e-4))
+                for a, b in zip(fused[:3], plain[:3]))
+    require(close, f"fused gradients differ from engine autograd: {errs}")
+    # the gradients' own size, so that the absolute tolerance above is
+    # read against it: each must be nonzero and agree in relative norm
+    scale = {k: float(b.abs().max())
+             for k, b in (("d_pred", plain[1]), ("d_reference", plain[2]))}
+    rel = {k: float(torch.linalg.vector_norm(a - b)
+                    / torch.linalg.vector_norm(b))
+           for k, a, b in (("d_pred", fused[1], plain[1]),
+                           ("d_reference", fused[2], plain[2]))}
+    require(all(v > 0 for v in scale.values())
+            and all(v <= 1e-4 for v in rel.values()),
+            f"fused gradients: max |engine grad| {scale}, relative-norm "
+            f"error {rel} (want > 0 and <= 1e-4)")
+    require(not c.cuda or peak < cells_bytes,
+            f"fused loss+backward peaked at {peak} bytes, not below "
+            f"B*M*N*4 = {cells_bytes}")
+    # 5 SGD steps on the predictions, counted per step
+    lr = 0.1 * B
+    pred = torch.from_numpy(pred_np).to(c.dev).requires_grad_()
+    loss_fn = make_sdtw_loss(torch.from_numpy(ref_np).to(c.dev),
+                             gamma=gamma, segment_width=w, device=c.dev,
+                             backend=c.backend)
+    counters = (normalizer.counter, wavefront.soft_counter)
+    losses, per_step = [], []
+    total = {"normalizer": 0, "soft_wavefront": {}}
+    c.sync()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        for counter in counters:
+            counter.reset()
+        loss = loss_fn(pred)
+        loss.backward()
+        with torch.no_grad():
+            pred -= lr * pred.grad
+        pred.grad = None
+        losses.append(float(loss.detach()))
+        step = {"normalizer": normalizer.counter.count,
+                "soft_wavefront": dict(wavefront.soft_counter.by_variant)}
+        per_step.append(step)
+        total["normalizer"] += step["normalizer"]
+        for k, v in step["soft_wavefront"].items():
+            total["soft_wavefront"][k] = total["soft_wavefront"].get(k, 0) + v
+    c.sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    with torch.no_grad():
+        final = float(loss_fn(pred))
+    want = {"normalizer": 2, "soft_wavefront": {"K6-forward": 1,
+                                                "K6-reverse": 1}}
+    require(not c.cuda or all(s == want for s in per_step),
+            f"training step launches {per_step}: want {want} per step")
+    require(final < losses[0], f"loss did not drop: {losses} -> {final}")
+    info = {"phase": "train_path", "workload": {
+                "batch": B, "query_len": M, "ref_len": N,
+                "segment_width": w, "gamma": gamma},
+            "loss": "make_sdtw_loss(normalize=True, reduce='mean')",
+            "tolerance": "atol=rtol=1e-4 against engine autograd, and "
+                         "||fused - engine|| / ||engine|| <= 1e-4 for "
+                         "each gradient",
+            "max_abs_err": errs, "max_abs_grad": scale,
+            "rel_norm_err": rel, "fused_ms": fused[3],
+            "engine_autograd_ms": plain[3],
+            "peak_bytes": peak,
+            "peak_bytes_over_baseline": None if peak is None
+            else peak - base, "bmn_bytes": cells_bytes,
+            "sgd_lr": lr, "losses": losses, "loss_after": final,
+            "sgd_step_ms": step_ms, "launches_per_step": per_step,
+            "launches": total}
+    emit(info)
+    return info
+
+
+def soft_alignment_phase(c) -> None:
+    """Phase 9: E through the fused path against align.soft."""
+    np, torch = c.np, c.torch
+    import repro_torch
+    from repro_torch.align.soft import expected_alignment_from
+    from repro_torch.core.normalize import normalize_batch
+    from repro_torch.kernels import wavefront
+    B, M, N = (4, 64, 2048) if c.cuda else (2, 16, 300)
+    rng = np.random.default_rng(c.seed + 4)
+    q = rng.normal(size=(B, M)).astype(np.float32)
+    r = np.cumsum(rng.normal(size=N)).astype(np.float32)
+    spec = soft_spec(0.5)
+    wavefront.soft_counter.reset()
+    res = repro_torch.sdtw(q, r, spec=spec, outputs=("cost",
+                                                      "soft_alignment"),
+                           backend="kernel", device=c.dev)
+    c.sync()
+    launches = dict(wavefront.soft_counter.by_variant)
+    E = res.soft_alignment
+    plain = expected_alignment_from(
+        normalize_batch(torch.from_numpy(q).to(c.dev)),
+        normalize_batch(torch.from_numpy(r).to(c.dev)), spec)
+    err = float((E - plain).abs().max())
+    mass = E.sum(dim=-1)
+    require(tuple(E.shape) == (B, M, N), f"E shape {tuple(E.shape)}")
+    require(bool(torch.allclose(E, plain, rtol=1e-4, atol=1e-4)),
+            f"fused E differs from align.soft (max abs {err})")
+    require(bool((mass >= 1 - 1e-3).all()), "an E row carries mass < 1")
+    require(not c.cuda or launches == {"K6-forward": 1, "K6-reverse": 1},
+            f"soft_alignment launches {launches}")
+    emit({"phase": "soft_alignment", "shape": [B, M, N], "gamma": 0.5,
+          "launches": launches, "max_abs_err": err,
+          "tolerance": "atol=rtol=1e-4 against align.soft",
+          "row_mass": mass.tolist()})
+
+
+def soft_times(c, main_soft: dict, train: dict) -> dict:
+    """Phase 10: K5 and K6 at PAPER, K6 and the tile pass at the
+    training shape; plain versions and bounds."""
+    torch = c.torch
+    from repro_torch.configs.paper_sdtw import SOFT_TRAIN_GAMMA
+    from repro_torch.core.normalize import normalize_batch
+    from repro_torch.kernels import backward, ops, wavefront
+    timer = c.timer
+    cfg = c.cfg
+    w, m, n, B = cfg.segment_width, cfg.query_len, cfg.ref_len, cfg.batch
+    spec, qn, layout = main_soft["spec"], main_soft["qn"], main_soft["layout"]
+    rlay = main_soft["aligner"].layout(reverse=True)
+    qf = torch.flip(qn, (1,)).contiguous()
+    reps = 2 if c.cuda else 1
+    out = {
+        "k5_ms": timer(lambda: wavefront.soft_wavefront(
+            qn, layout, n=n, w=w, spec=spec), reps),
+        "k6f_paper_ms": timer(lambda: wavefront.soft_checkpoint(
+            qn, layout, n=n, w=w, spec=spec), reps),
+        "k6r_paper_ms": timer(lambda: wavefront.soft_checkpoint(
+            qf, rlay, n=n, w=w, spec=spec, reverse=True), reps)}
+    chunks = layout.shape[0] // wavefront.chunk_cols(w)
+    cells = B * m * n
+    in_bytes = (B * m + n) * 4
+    out["k5_bound_ms"], out["k5_bound_by"] = least_time(
+        c, in_bytes + B * 8, SOFT_FP32_OPS_PER_CELL * cells,
+        SOFT_MUFU_OPS_PER_CELL * cells)
+    out["k6_paper_bound_ms"], _ = least_time(
+        c, in_bytes + B * 8 + B * chunks * m * 4,
+        SOFT_FP32_OPS_PER_CELL * cells, SOFT_MUFU_OPS_PER_CELL * cells)
+
+    # the training shape: the K6 pair, its plain versions, the tile pass
+    tcfg, pred_np, ref_np = train_inputs(c)
+    tB, tm, tn, tw = tcfg.batch, tcfg.query_len, tcfg.ref_len, \
+        tcfg.segment_width
+    tspec = soft_spec(SOFT_TRAIN_GAMMA)
+    tq = normalize_batch(torch.from_numpy(pred_np).to(c.dev))
+    tr = normalize_batch(torch.from_numpy(ref_np).to(c.dev))
+    tlay = ops.prepare_reference(tr, tw)
+    trlay = ops.prepare_reference_reverse(tr, tw)
+    tqf = torch.flip(tq, (1,)).contiguous()
+    out["k6f_train_ms"] = timer(lambda: wavefront.soft_checkpoint(
+        tq, tlay, n=tn, w=tw, spec=tspec), 5 if c.cuda else 1)
+    out["k6r_train_ms"] = timer(lambda: wavefront.soft_checkpoint(
+        tqf, trlay, n=tn, w=tw, spec=tspec, reverse=True),
+        5 if c.cuda else 1)
+    got_f = wavefront.soft_checkpoint(tq, tlay, n=tn, w=tw, spec=tspec)
+    got_r = wavefront.soft_checkpoint(tqf, trlay, n=tn, w=tw, spec=tspec,
+                                      reverse=True)
+    plain = {}
+    for name, fn in (("f", lambda: wavefront.checkpoint_plain(
+                         tq, tlay, n=tn, w=tw, spec=tspec)),
+                     ("r", lambda: wavefront.checkpoint_plain(
+                         tqf, trlay, n=tn, w=tw, spec=tspec, reverse=True))):
+        c.sync()
+        t0 = time.perf_counter()
+        plain[name] = fn()
+        c.sync()
+        out[f"k6{name}_plain_ms"] = (time.perf_counter() - t0) * 1e3
+    for name, got in (("f", got_f), ("r", got_r)):
+        want = plain[name]
+        err = max(float((got[0] - want[0]).abs().max()),
+                  float((got[2] - want[2]).abs().max()))
+        out[f"k6{name}_max_abs_err"] = err
+        require(bool(torch.allclose(got[0], want[0], rtol=1e-4, atol=1e-4)
+                     and torch.allclose(got[2], want[2], rtol=1e-4,
+                                        atol=1e-4)),
+                f"K6-{name} differs from its plain version at the "
+                f"training shape ({err})")
+    tchunks = tlay.shape[0] // wavefront.chunk_cols(tw)
+    tcells = tB * tm * tn
+    strip_bytes = tB * tchunks * tm * 4
+    out["k6f_bound_ms"], out["k6_bound_by"] = least_time(
+        c, (tB * tm + tn) * 4 + tB * 8 + strip_bytes,
+        SOFT_FP32_OPS_PER_CELL * tcells, SOFT_MUFU_OPS_PER_CELL * tcells)
+    out["k6r_bound_ms"] = out["k6f_bound_ms"]
+    # the tile pass alone (plain torch), from the K6 pair's strips
+    ct = torch.full((tB,), 1.0 / tB, device=c.dev)
+    fold = lambda: backward.fold_grads(  # noqa: E731
+        tq, tlay, tn, got_f[0], got_f[2], got_r[2], ct, spec=tspec,
+        segment_width=tw)
+    out["tile_pass_ms"] = timer(fold, 1, warmup=0)
+    # its work: both tiles rebuild every cell (a soft cell each, the
+    # local cost's sub and mul shared), and E and the folds take 8 FP32
+    # operations and one more exponential a cell
+    out["tile_pass_bound_ms"], _ = least_time(
+        c, (tB * tm + tn) * 4 * 2 + 2 * strip_bytes,
+        (2 * SOFT_FP32_OPS_PER_CELL - 2 + 8) * tcells,
+        (2 * SOFT_MUFU_OPS_PER_CELL + 1) * tcells)
+    emit({"phase": "soft_times", "clock": "cuda events" if c.cuda
+          else "host clock (cpu rehearsal, not a device number)",
+          "paper": {"batch": B, "query_len": m, "ref_len": n,
+                    "segment_width": w, "gamma": PAPER_GAMMA},
+          "train": {"batch": tB, "query_len": tm, "ref_len": tn,
+                    "segment_width": tw, "gamma": SOFT_TRAIN_GAMMA},
+          "k5_plain_ms": main_soft["plain_ms"],
+          "sgd_step_ms": train["sgd_step_ms"], **out,
+          "cells_paper": cells, "cells_train": tcells,
+          "bound_rule": "max(bytes / 3.35 TB/s, 13 FP32 ops a cell / "
+                        "(132 x 128 lanes x max SM clock), 3 MUFU ops a "
+                        "cell (2 exp + 1 log) / (132 x 16 x max SM "
+                        "clock)); tile pass: 2 x 13 - 2 + 8 FP32 and "
+                        "2 x 3 + 1 MUFU a cell"})
+    return out
 
 
 def main(argv=None) -> int:
@@ -431,6 +919,9 @@ def main(argv=None) -> int:
     k2_plain_ms = timer(lambda: normalizer.normalize_plain(qc), 20)
     k2_lib_ms = timer(lambda: torch.nn.functional.layer_norm(
         qc, (qc.shape[-1],), eps=1e-12), 20)
+    k2_r_plain_ms = timer(lambda: normalizer.normalize_plain(rc), 20)
+    k2_r_lib_ms = timer(lambda: torch.nn.functional.layer_norm(
+        rc, (rc.shape[-1],), eps=1e-12), 20)
 
     def warm_call():
         aligner(queries_np)
@@ -472,6 +963,8 @@ def main(argv=None) -> int:
           "k4_plain_ms": plain_k4_ms,
           "k2_queries_ms": k2_q_ms, "k2_reference_ms": k2_r_ms,
           "k2_plain_ms": k2_plain_ms, "k2_layer_norm_ms": k2_lib_ms,
+          "k2_reference_plain_ms": k2_r_plain_ms,
+          "k2_reference_layer_norm_ms": k2_r_lib_ms,
           "aligner_warm_call_ms": aligner_ms,
           "k1_bound_ms": k1_bound, "k3_bound_ms": k3_bound,
           "k4_bound_ms": k4_bound, "k2_bound_ms": k2_bound,
@@ -481,7 +974,18 @@ def main(argv=None) -> int:
           "sm_clock_mhz_under_load": clock_now, "sm_clock_max_mhz": clock_max,
           "lane_ops_per_s": lane_ops_per_s})
 
-    # ------------------------------------------------ 6. kernels line
+    # ------------------------------------------ 6.-10. soft-min phases
+    ctx = argparse.Namespace(
+        np=np, torch=torch, dev=dev, cuda=cuda, cfg=cfg, timer=timer,
+        sync=sync, seed=args.seed, backend=backend,
+        clock_max=clock_max, lane_ops_per_s=lane_ops_per_s)
+    soft_parity(ctx)
+    main_soft = soft_main_path(ctx, queries_np, ref_np, planted)
+    train = train_path(ctx)
+    soft_alignment_phase(ctx)
+    soft = soft_times(ctx, main_soft, train)
+
+    # ------------------------------------------------ 11. kernels line
     cu = "src/repro_torch/kernels/csrc/"
     emit({"kernels": [
         {"name": "wavefront_K1", "route": "cuda",
@@ -514,12 +1018,48 @@ def main(argv=None) -> int:
          "max_abs_err": k2["queries"]["max_abs_err"], "ms": k2_q_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms},
+        {"name": "soft_wavefront_K5", "route": "cuda",
+         "source": cu + "wavefront.cu",
+         "replaces": "src/repro/kernels/wavefront.py:967",
+         "path": "repro_torch.sdtw(reduction='softmin') at PAPER",
+         "launches": main_soft["launches"]["soft_wavefront"].get("K5", 0),
+         "parity": "within atol=rtol=1e-4 of the plain version",
+         "max_abs_err": main_soft["max_abs_err"], "ms": soft["k5_ms"],
+         "plain_ms": main_soft["plain_ms"], "bound_ms": soft["k5_bound_ms"],
+         "bound_by": soft["k5_bound_by"], "library_ms": None},
+        {"name": "soft_wavefront_K6_forward", "route": "cuda",
+         "source": cu + "wavefront.cu",
+         "replaces": "src/repro/kernels/wavefront.py:967",
+         "path": "make_sdtw_loss backward at the training shape",
+         "launches": train["launches"]["soft_wavefront"].get(
+             "K6-forward", 0),
+         "parity": "within atol=rtol=1e-4 of the plain version",
+         "max_abs_err": soft["k6f_max_abs_err"],
+         "ms": soft["k6f_train_ms"], "plain_ms": soft["k6f_plain_ms"],
+         "bound_ms": soft["k6f_bound_ms"], "bound_by": soft["k6_bound_by"],
+         "library_ms": None},
+        {"name": "soft_wavefront_K6_reverse", "route": "cuda",
+         "source": cu + "wavefront.cu",
+         "replaces": "src/repro/kernels/wavefront.py:967",
+         "path": "make_sdtw_loss backward at the training shape",
+         "launches": train["launches"]["soft_wavefront"].get(
+             "K6-reverse", 0),
+         "parity": "within atol=rtol=1e-4 of the plain version",
+         "max_abs_err": soft["k6r_max_abs_err"],
+         "ms": soft["k6r_train_ms"], "plain_ms": soft["k6r_plain_ms"],
+         "bound_ms": soft["k6r_bound_ms"], "bound_by": soft["k6_bound_by"],
+         "library_ms": None},
     ]})
     if not cuda:
         return 0
     require(launches["normalizer"] > 0 and launches["wavefront"]
             and band_launches["wavefront"],
             "a kernel of the main path was never launched")
+    require(main_soft["launches"]["soft_wavefront"].get("K5", 0) > 0
+            and all(train["launches"]["soft_wavefront"].get(k, 0) > 0
+                    for k in ("K6-forward", "K6-reverse"))
+            and train["launches"]["normalizer"] > 0,
+            "a kernel of the soft or training path was never launched")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,21 +2,27 @@
 
 * ``ref``    — the torch row-scan oracle (slow, for validation);
 * ``engine`` — the torch anti-diagonal engine;
-* ``kernel`` — the CUDA wavefront (its plain version on a CPU tensor).
+* ``kernel`` — the CUDA wavefronts (their plain versions on a CPU
+  tensor); soft-min specs go through ``kernels.backward.sdtw_soft_fused``
+  so that autograd reaches the fused reverse-sweep backward;
+* ``soft`` — an alias: the engine with ``reduction="softmin"``.
 
-All three run hard-min sdtw; each adapter turns its sweep's tuple into
-an :class:`~repro_torch.core.result.SDTWResult`.
+All three run hard- and soft-min sdtw and are differentiable under
+soft-min; each adapter turns its sweep's tuple into an
+:class:`~repro_torch.core.result.SDTWResult`.  ``soft_alignment`` is
+filled above the sweep (``core.api``), so every backend declares it.
 """
 
 from __future__ import annotations
 
-from repro_torch.backends.registry import Backend, Capabilities, register
+from repro_torch.backends.registry import (Backend, Capabilities, register,
+                                           register_alias)
 from repro_torch.core import engine, ref
 from repro_torch.core.result import from_sweep
-from repro_torch.kernels import ops
+from repro_torch.kernels import backward, ops
 
 _ALL = frozenset({"sqeuclidean", "abs", "cosine"})
-_WINDOWED = frozenset({"cost", "end", "start"})
+_FULL = frozenset({"cost", "end", "start", "soft_alignment"})
 
 
 def _exec_ref(spec, plan):
@@ -33,6 +39,13 @@ def _exec_engine(spec, plan):
 
 
 def _exec_kernel(spec, plan):
+    if spec.soft:
+        return from_sweep(
+            backward.sdtw_soft_fused(plan.queries, plan.reference,
+                                     spec=spec,
+                                     segment_width=plan.segment_width,
+                                     layouts=plan.layouts),
+            plan.outputs)
     return from_sweep(
         ops.sdtw_wavefront(plan.queries, plan.reference,
                            segment_width=plan.segment_width, spec=spec,
@@ -42,18 +55,21 @@ def _exec_kernel(spec, plan):
 
 register(Backend(
     name="ref",
-    capabilities=Capabilities(distances=_ALL, outputs=_WINDOWED),
+    capabilities=Capabilities(distances=_ALL, outputs=_FULL),
     execute=_exec_ref))
 
 register(Backend(
     name="engine",
-    capabilities=Capabilities(distances=_ALL, outputs=_WINDOWED),
+    capabilities=Capabilities(distances=_ALL, outputs=_FULL),
     execute=_exec_engine))
+
+# soft == the engine with the reduction forced to soft-min
+register_alias("soft", "engine", reduction="softmin")
 
 register(Backend(
     name="kernel",
     capabilities=Capabilities(
         # no cosine: the JAX kernel declines it too
         distances=frozenset(ops.wavefront.KERNEL_DISTANCES),
-        outputs=_WINDOWED),
+        outputs=_FULL),
     execute=_exec_kernel))

@@ -5,6 +5,7 @@ Each backend registers a :class:`Capabilities` declaration and an
 :class:`~repro_torch.core.result.SDTWResult`.  ``repro_torch.sdtw``
 resolves a spec, asks the registry for a capable backend and executes;
 an incapable request fails with an error that names who can serve it.
+An alias (``soft``) names a backend with spec fields overridden.
 Counterpart of ``repro.backends.registry``.
 """
 
@@ -34,22 +35,36 @@ class Capabilities:
         if spec.distance not in self.distances:
             return f"distance {spec.distance!r}"
         if outputs is not None:
-            missing = normalize_outputs(outputs) - self.outputs
+            req = normalize_outputs(outputs)
+            missing = req - self.outputs
             if missing:
                 return f"output(s) {sorted(missing)}"
+            argmin = req & {"start", "path"}
+            if argmin and spec.soft:
+                return (f"output(s) {sorted(argmin)} under soft-min: no "
+                        f"argmin path on a soft-min spec (hard-min only; "
+                        f"ask outputs=('soft_alignment',) for the "
+                        f"smoothed alignment)")
+            if "soft_alignment" in req and not spec.soft:
+                return ("output 'soft_alignment' under hard-min: the "
+                        "expected alignment needs a softmin spec "
+                        "(reduction='softmin'; hard-min paths are "
+                        "outputs=('path',))")
         return None
 
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     """Everything an execute() needs besides the spec: the (already
-    normalized) operands on their device, the requested sweep outputs
-    and the kernel's segment width."""
+    normalized) operands on their device, the requested sweep outputs,
+    the kernel's segment width and, when a session keeps them, the
+    kernel's (forward, reverse) reference layouts."""
 
     queries: Any
     reference: Any
     segment_width: int = 8
     outputs: frozenset = _BASE_OUTPUTS
+    layouts: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +78,7 @@ class Backend:
 
 
 _REGISTRY: dict[str, Backend] = {}
+_ALIASES: dict[str, tuple[str, dict]] = {}
 _PRIORITY = ("engine", "kernel", "ref")
 
 
@@ -82,14 +98,31 @@ def register(backend: Backend, *, overwrite: bool = False) -> Backend:
     return backend
 
 
+def register_alias(alias: str, target: str, **spec_overrides) -> None:
+    """An alias resolves to ``target`` with fields of the caller's spec
+    overridden (``soft`` -> engine with ``reduction="softmin"``)."""
+    _ALIASES[alias] = (target, spec_overrides)
+
+
+def expand(name: str, spec: DPSpec) -> tuple[str, DPSpec]:
+    """Alias expansion: (the target backend's name, the spec with the
+    alias's overrides); a backend name comes back as it is."""
+    _ensure_builtins()
+    if name not in _ALIASES:
+        return name, spec
+    target, overrides = _ALIASES[name]
+    return target, dataclasses.replace(spec, **overrides)
+
+
 def _ensure_builtins() -> None:
     if "engine" not in _REGISTRY:
         from repro_torch.backends import builtin  # noqa: F401 (registers)
 
 
 def names() -> list[str]:
+    """Registered backends, then aliases."""
     _ensure_builtins()
-    return sorted(_REGISTRY)
+    return sorted(_REGISTRY) + sorted(_ALIASES)
 
 
 def get(name: str) -> Backend:
@@ -108,8 +141,9 @@ def capable(spec: DPSpec, *, outputs=None,
     _ensure_builtins()
     ordered = [n for n in _priority(device) if n in _REGISTRY]
     ordered += [n for n in sorted(_REGISTRY) if n not in ordered]
-    return [n for n in ordered if _REGISTRY[n].capabilities
-            .unsupported_reason(spec, outputs=outputs) is None]
+    return [n for n in ordered
+            if _REGISTRY[n].capabilities.unsupported_reason(
+                spec, outputs=outputs) is None]
 
 
 def resolve(name: str, spec: DPSpec, *, outputs=None,
@@ -134,5 +168,8 @@ def select(spec: DPSpec, *, outputs=None,
         what = f"spec {spec.describe()}"
         if outputs is not None:
             what += f" with outputs={sorted(normalize_outputs(outputs))}"
-        raise ValueError(f"no registered backend supports {what}")
+        reason = _REGISTRY["engine"].capabilities.unsupported_reason(
+            spec, outputs=outputs)
+        why = f" (engine: {reason})" if reason else ""
+        raise ValueError(f"no registered backend supports {what}{why}")
     return _REGISTRY[choices[0]]

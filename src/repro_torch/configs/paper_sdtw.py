@@ -20,3 +20,8 @@ PAPER = SDTWWorkload()
 
 # reduced workload for CPU-bound tests of the same code paths
 SMALL = SDTWWorkload(batch=16, query_len=64, ref_len=1_024)
+
+# the soft-DTW gradient at the JAX package's full soft-backward shape
+# (benchmarks/soft_backward.py --full), gamma 0.5
+SOFT_TRAIN = SDTWWorkload(batch=256, query_len=256, ref_len=8_192)
+SOFT_TRAIN_GAMMA = 0.5

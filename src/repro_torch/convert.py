@@ -20,9 +20,9 @@ _FIELDS = frozenset(f.name for f in dataclasses.fields(DPSpec))
 
 def spec_from_dict(d: dict) -> DPSpec:
     """The port's :class:`DPSpec` from ``dataclasses.asdict`` of a
-    ``repro.core.spec.DPSpec``.  Unknown fields raise ``ValueError``;
-    fields outside this slice (soft-min, other families) raise
-    ``NotPortedError``."""
+    ``repro.core.spec.DPSpec``, soft-min specs (``gamma``) included.
+    Unknown fields raise ``ValueError``; specs the port does not serve
+    yet (other families, a bf16 accumulator) raise ``NotPortedError``."""
     unknown = set(d) - _FIELDS
     if unknown:
         raise ValueError(f"unknown DPSpec field(s) {sorted(unknown)}; "

@@ -11,11 +11,16 @@ Counterpart of ``repro.core.api.sdtw``.  The call runs on the CUDA card
 unless ``device="cpu"`` is passed; with no card and no ``device="cpu"``
 it raises instead of running on the CPU.  On the card the registry puts
 the ``kernel`` backend first: both normalizations go through the K2
-kernel and the sweep through the K1/K3/K4 wavefront kernel.
+kernel and the sweep through the K1/K3/K4 wavefront kernel, or K5 for a
+soft-min spec.  Under soft-min the returned cost is differentiable with
+``torch.autograd`` with respect to the queries and the reference
+(through K6 and the normalizer's backward on the kernel backend), and
+``outputs=("soft_alignment",)`` returns the expected alignment E.
 """
 
 from __future__ import annotations
 
+from repro_torch.align.soft import expected_alignment_from
 from repro_torch.backends import registry
 from repro_torch.core.device import as_f32, resolve_device
 from repro_torch.core.normalize import normalize_batch
@@ -23,15 +28,42 @@ from repro_torch.core.result import (DEFAULT_OUTPUTS, SDTWResult,
                                      normalize_outputs, sweep_outputs)
 from repro_torch.core.spec import (DPSpec, not_ported, resolve_spec,
                                    validate_batch_inputs)
+from repro_torch.kernels.backward import soft_alignment_fused
 from repro_torch.kernels.ops import validate_segment_width
 
 
 def check_ported_outputs(req: frozenset) -> None:
-    """Reject the outputs this slice does not serve yet."""
+    """Reject the outputs the port does not serve yet."""
     if "path" in req:
         raise not_ported("output 'path'", "slice 3")
+
+
+def execute(impl: registry.Backend, spec: DPSpec, queries, reference,
+            req: frozenset, segment_width: int, *,
+            layouts=None) -> SDTWResult:
+    """Run one resolved request on already-normalized operands.
+
+    ``soft_alignment`` on the kernel backend is one fused K6 pair that
+    also gives cost and end; elsewhere E is derived
+    above the sweep by differentiating the cost-matrix sweep
+    (``align.soft``), and a request for E alone runs no sweep.
+    ``layouts``: an ``Aligner``'s cached forward and reverse kernel
+    reference layouts, for the kernel backend's soft-min sweeps."""
+    if "soft_alignment" in req and impl.name == "kernel":
+        cost, end, E = soft_alignment_fused(
+            queries, reference, spec=spec, segment_width=segment_width,
+            layouts=layouts)
+        return SDTWResult(cost=cost, end=end, soft_alignment=E).restrict(req)
+    res = SDTWResult()
+    if req - {"soft_alignment"}:
+        res = impl.execute(spec, registry.ExecutionPlan(
+            queries=queries, reference=reference,
+            segment_width=segment_width, outputs=sweep_outputs(req),
+            layouts=layouts))
     if "soft_alignment" in req:
-        raise not_ported("output 'soft_alignment'", "slice 2")
+        res = res.replace(soft_alignment=expected_alignment_from(
+            queries, reference, spec))
+    return res.restrict(req)
 
 
 def check_width(segment_width) -> int:
@@ -56,10 +88,12 @@ def sdtw(queries, reference, *,
 
     queries: (B, M); reference: (N,) — numpy arrays or tensors.  Returns
     an :class:`SDTWResult` with exactly the requested ``outputs``:
-    ``cost`` (B,) float32, ``end`` (B,) int32, ``start`` (B,) int32.
+    ``cost`` (B,) float32, ``end`` (B,) int32, ``start`` (B,) int32
+    (hard-min), ``soft_alignment`` (B, M, N) float32 (soft-min).
     ``spec`` carries the recurrence; ``distance`` / ``reduction`` /
     ``gamma`` / ``band`` / ``family`` override its fields.
-    ``backend=None`` picks the first capable backend for the device.
+    ``backend=None`` picks the first capable backend for the device;
+    ``backend="soft"`` is the engine under soft-min.
     ``segment_width`` is the kernel's reference cells per lane, one of
     ``repro_torch.kernels.ops.DEFAULT_WIDTH_CANDIDATES``.
     """
@@ -75,11 +109,9 @@ def sdtw(queries, reference, *,
     if backend is None:
         impl = registry.select(resolved, outputs=req, device=dev)
     else:
-        impl = registry.resolve(backend, resolved, outputs=req, device=dev)
+        name, resolved = registry.expand(backend, resolved)
+        impl = registry.resolve(name, resolved, outputs=req, device=dev)
     if normalize:
         q = normalize_batch(q)
         r = normalize_batch(r)
-    plan = registry.ExecutionPlan(queries=q, reference=r,
-                                  segment_width=width,
-                                  outputs=sweep_outputs(req))
-    return impl.execute(resolved, plan).restrict(req)
+    return execute(impl, resolved, q, r, req, width)

@@ -1,18 +1,19 @@
 """Reference (oracle) implementations of subsequence DTW for the port.
 
 * :func:`sdtw_numpy` — the float64 full-matrix oracle, a copy of
-  ``repro.core.ref.sdtw_numpy`` (hard-min): the shared judge where the
-  float32 paths disagree.
+  ``repro.core.ref.sdtw_numpy`` (hard- and soft-min): the shared judge
+  where the float32 paths disagree.
 * :func:`sdtw_ref` — a row-by-row scan in torch, the counterpart of
   ``repro.core.ref.sdtw_ref``.  Sequential over both axes (vectorized
   over the batch only), so it is slow and meant for test-size inputs.
 
 Recurrence, 0-based rows ``i`` and columns ``j``::
 
-    D[i, j] = cost(q[i], r[j]) + min(D[i-1, j], D[i, j-1], D[i-1, j-1])
+    D[i, j] = cost(q[i], r[j]) + reduce(D[i-1, j], D[i, j-1], D[i-1, j-1])
 
 with ``D[-1, j] = 0`` (an alignment may start anywhere) and
-``D[i, -1] = inf``; the answer is the min of ``D[M-1, j]`` over j.
+``D[i, -1] = inf``; the answer is the reduction (min, or the soft-min
+``-gamma * logsumexp(-x / gamma)``) of ``D[M-1, j]`` over j.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.spec import DEFAULT_SPEC, INF, NO_WINDOW, DPSpec
+from repro_torch.core.spec import (DEFAULT_SPEC, INF, NO_WINDOW, SOFT_BIG,
+                                   DPSpec)
 
 
 def _np_cost(spec: DPSpec, a: float, b: float) -> float:
@@ -31,10 +33,25 @@ def _np_cost(spec: DPSpec, a: float, b: float) -> float:
     return 1.0 - (a * b) / (abs(a) * abs(b) + 1e-8)
 
 
+def _np_logsumexp(a: np.ndarray) -> float:
+    mx = np.max(a)
+    if not np.isfinite(mx):
+        return -np.inf
+    return float(mx + np.log(np.sum(np.exp(a - mx))))
+
+
+def _np_softmin(vals, gamma: float) -> float:
+    a = -np.asarray(vals, dtype=np.float64) / gamma
+    if not np.isfinite(np.max(a)):          # every predecessor blocked
+        return np.inf
+    return -gamma * _np_logsumexp(a)
+
+
 def sdtw_numpy(q: np.ndarray, r: np.ndarray,
                spec: DPSpec | None = None) -> tuple[float, int]:
-    """Brute-force full-matrix hard-min sDTW in float64.  O(M*N) memory.
-    Returns (cost, end_index)."""
+    """Brute-force full-matrix sDTW in float64.  O(M*N) memory.
+    Returns (cost, end_index); under soft-min the cost is the soft-min
+    over the bottom row and the end its hard argmin."""
     spec = DEFAULT_SPEC if spec is None else spec
     q = np.asarray(q, dtype=np.float64)
     r = np.asarray(r, dtype=np.float64)
@@ -46,11 +63,18 @@ def sdtw_numpy(q: np.ndarray, r: np.ndarray,
             if spec.band is not None and abs((i - 1) - (j - 1)) > spec.band:
                 continue                      # out of band: stays +inf
             c = _np_cost(spec, q[i - 1], r[j - 1])
-            prev = 0.0 if i == 1 else min(D[i, j - 1], D[i - 1, j],
-                                          D[i - 1, j - 1])
+            preds = (D[i, j - 1], D[i - 1, j], D[i - 1, j - 1])
+            if i == 1:
+                prev = 0.0                    # free start: D[-1, j] == 0
+            elif spec.soft:
+                prev = _np_softmin(preds, spec.gamma)
+            else:
+                prev = min(preds)
             D[i, j] = c + prev
     last = D[m, 1:]
     end = int(np.argmin(last))
+    if spec.soft:
+        return -spec.gamma * _np_logsumexp(-last / spec.gamma), end
     return float(last[end]), end
 
 
@@ -60,9 +84,12 @@ def sdtw_ref(queries: torch.Tensor, reference: torch.Tensor,
 
     queries: (B, M) float32; reference: (N,) float32.
     Returns (costs (B,), ends (B,) int32), or (costs, starts, ends) when
-    ``return_window``.
+    ``return_window`` (hard-min only).  Differentiable under soft-min.
     """
     spec = DEFAULT_SPEC if spec is None else spec
+    if return_window and spec.soft:
+        raise ValueError("return_window needs a hard-min spec: soft-min "
+                         "has no argmin path")
     q = queries.to(torch.float32)
     r = reference.to(torch.float32)
     B, M = q.shape
@@ -75,9 +102,9 @@ def sdtw_ref(queries: torch.Tensor, reference: torch.Tensor,
     row = spec.cell_cost(q[:, :1], r[None])
     starts = jj.to(torch.int32).expand(B, N).clone()
     if ok is not None:
-        row = torch.where(ok[0], row, INF)
+        row = torch.where(ok[0], row, spec.big)
         starts = torch.where(ok[0], starts, NO_WINDOW)
-    big = torch.full((B,), INF, dtype=torch.float32, device=dev)
+    big = torch.full((B,), spec.big, dtype=torch.float32, device=dev)
     neg = torch.full((B,), NO_WINDOW, dtype=torch.int32, device=dev)
     for i in range(1, M):
         cost = spec.cell_cost(q[:, i:i + 1], r[None])
@@ -99,6 +126,11 @@ def sdtw_ref(queries: torch.Tensor, reference: torch.Tensor,
     # torch.argmin returns the first minimal index: earliest column wins
     end = torch.argmin(row, dim=1)
     cost = row.gather(1, end[:, None])[:, 0]
+    if spec.soft:
+        soft = -spec.gamma * torch.logsumexp(-row / spec.gamma, dim=1)
+        # the band masks the whole bottom row: +inf, as the hard path
+        return torch.where(cost >= SOFT_BIG / 2, INF, soft), \
+            end.to(torch.int32)
     if return_window:
         start = starts.gather(1, end[:, None])[:, 0]
         return cost, start, end.to(torch.int32)

@@ -2,9 +2,9 @@
 
 A request names the artifacts it wants (``outputs``) and the result
 carries exactly those fields, everything else ``None``; counterpart of
-``repro.core.result``.  This slice serves the sweep-level outputs
-``cost``, ``end`` and ``start``; ``path`` (slice 3) and
-``soft_alignment`` (slice 2) are rejected by the front door.
+``repro.core.result``.  The port serves the sweep-level outputs
+``cost``, ``end`` and ``start`` and, under soft-min, ``soft_alignment``;
+``path`` (slice 3) is rejected by the front door.
 """
 
 from __future__ import annotations

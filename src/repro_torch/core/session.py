@@ -9,19 +9,24 @@ query batches against it::
 
 Counterpart of ``repro.core.session.Aligner``.  The reference is
 normalized once at construction (one K2 launch on the card); the
-kernel's reference layout is built once per segment width and cached;
-each call normalizes its queries (one K2 launch) and runs one sweep
-(one wavefront launch).  PyTorch runs eagerly, so there is no
-executable cache: :class:`AlignerStats` counts calls and layout builds
-only.
+kernel's reference layouts (forward, and reverse for the soft-DTW
+backward) are built once per segment width and cached; each call
+normalizes its queries (one K2 launch) and runs one sweep (one wavefront
+launch: K1/K3/K4, or K5 under soft-min).  A soft-min call that autograd
+must differentiate, or that asks for ``soft_alignment`` (over the
+cached layouts), runs the K6 pair instead.  PyTorch runs eagerly, so
+there is no executable cache: :class:`AlignerStats` counts calls and
+layout builds only.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.backends import registry
-from repro_torch.core.api import check_ported_outputs, check_width
+from repro_torch.core.api import check_ported_outputs, check_width, execute
 from repro_torch.core.device import as_f32, resolve_device
 from repro_torch.core.normalize import normalize_batch
 from repro_torch.core.result import (DEFAULT_OUTPUTS, SDTWResult,
@@ -81,8 +86,8 @@ class Aligner:
             self.backend = registry.select(self.spec, outputs=hint,
                                            device=self.device)
         else:
-            self.backend = registry.resolve(backend, self.spec,
-                                            outputs=hint,
+            name, self.spec = registry.expand(backend, self.spec)
+            self.backend = registry.resolve(name, self.spec, outputs=hint,
                                             device=self.device)
         self.normalize = normalize
         self.reference = normalize_batch(r) if normalize else r
@@ -90,15 +95,18 @@ class Aligner:
         self._layouts: dict = {}
         self.stats = AlignerStats()
 
-    def layout(self, segment_width: int | None = None):
-        """The kernel's reference layout for one width, built at most
-        once per session."""
+    def layout(self, segment_width: int | None = None, *,
+               reverse: bool = False):
+        """The kernel's reference layout for one width (``reverse``: the
+        reverse sweep's), built at most once per session."""
         w = self.segment_width if segment_width is None else \
             check_width(segment_width)
-        lay = self._layouts.get(w)
+        lay = self._layouts.get((w, reverse))
         if lay is None:
-            lay = self._layouts[w] = ops.prepare_reference(self.reference,
-                                                           w)
+            prep = (ops.prepare_reference_reverse if reverse
+                    else ops.prepare_reference)
+            lay = self._layouts[(w, reverse)] = prep(
+                self.reference.detach(), w)
             self.stats.layout_builds += 1
         return lay
 
@@ -113,17 +121,20 @@ class Aligner:
         self.stats.calls += 1
         if self.normalize:
             q = normalize_batch(q)
+        if self.backend.name != "kernel":
+            return execute(self.backend, self.spec, q, self.reference, req,
+                           self.segment_width)
+        if "soft_alignment" in req or (
+                self.spec.soft and torch.is_grad_enabled() and (
+                    q.requires_grad or self.reference.requires_grad)):
+            return execute(self.backend, self.spec, q, self.reference, req,
+                           self.segment_width,
+                           layouts=(self.layout(), self.layout(reverse=True)))
         sweep = sweep_outputs(req)
-        if self.backend.name == "kernel":
-            res = from_sweep(ops.sdtw_wavefront_prepped(
-                q, self.layout(), n=self.length,
-                segment_width=self.segment_width, spec=self.spec,
-                return_window="start" in sweep), sweep)
-        else:
-            res = self.backend.execute(self.spec, registry.ExecutionPlan(
-                queries=q, reference=self.reference,
-                segment_width=self.segment_width, outputs=sweep))
-        return res.restrict(req)
+        return from_sweep(ops.sdtw_wavefront_prepped(
+            q, self.layout(), n=self.length,
+            segment_width=self.segment_width, spec=self.spec,
+            return_window="start" in sweep), sweep).restrict(req)
 
     __call__ = align
 

@@ -9,9 +9,9 @@ with the free start ``D[-1, j] = 0``.  Field names, defaults and the
 sentinel values are those of ``repro.core.spec`` so that one spec (as a
 plain dict, see ``repro_torch.convert``) drives both packages.
 
-This slice ports hard-min subsequence DTW only.  A spec outside it
-raises :class:`NotPortedError`, which names the ROADMAP slice that
-brings it.
+Hard-min and soft-min subsequence DTW are ported.  A spec outside
+them (another recurrence family, a bf16 accumulator) raises
+:class:`NotPortedError`, which names the ROADMAP slice that brings it.
 """
 
 from __future__ import annotations
@@ -31,8 +31,11 @@ INF = math.inf
 #   Hard-min accumulators of the engine and the row-scan ref: +inf is the
 #   identity of ``min``; masked cells are overwritten before any read.
 SOFT_BIG = 1e30
-#   The soft-min sentinel of the JAX package (soft-min is not ported yet;
-#   kept so both packages name the same values).
+#   Soft-min accumulators (engine, ref, the soft CUDA sweeps): FINITE,
+#   so that ``exp(-SOFT_BIG / gamma)`` underflows to exactly 0.0 and no
+#   ``inf - inf = NaN`` enters the min-shifted logsumexp or its
+#   gradient; 1e30 leaves ~8 orders of magnitude below the f32 max, so
+#   ``cost + SOFT_BIG`` and ``SOFT_BIG / gamma`` cannot overflow.
 KERNEL_BIG = 3.0e38
 #   The CUDA wavefront's masked-cell / edge sentinel: finite, so that
 #   ``cost + KERNEL_BIG`` never produces inf - inf arithmetic.  In a
@@ -82,6 +85,8 @@ class DPSpec:
         if self.family not in FAMILIES:
             raise ValueError(f"unknown recurrence family {self.family!r}; "
                              f"choose from {FAMILIES}")
+        if self.reduction == "softmin" and not self.gamma > 0:
+            raise ValueError(f"softmin needs gamma > 0, got {self.gamma}")
         if self.band is not None and (
                 isinstance(self.band, bool)
                 or not isinstance(self.band, numbers.Integral)
@@ -91,14 +96,24 @@ class DPSpec:
         if self.family != "sdtw":
             raise not_ported(f"recurrence family {self.family!r}",
                              "slice 4")
-        if self.reduction == "softmin":
-            raise not_ported("reduction='softmin'", "slice 2")
         if self.accum_dtype != "float32":
             raise not_ported(f"accum_dtype={self.accum_dtype!r}",
                              "queue 2, bf16-K1")
 
+    @property
+    def soft(self) -> bool:
+        return self.reduction == "softmin"
+
+    @property
+    def big(self) -> float:
+        """The masked/initial-cell sentinel of this reduction: ``INF``
+        for hard-min, the finite ``SOFT_BIG`` for soft-min."""
+        return SOFT_BIG if self.soft else INF
+
     def describe(self) -> str:
         parts = [self.distance, self.reduction]
+        if self.soft:
+            parts.append(f"gamma={self.gamma:g}")
         if self.band is not None:
             parts.append(f"band={self.band}")
         return "/".join(parts)
@@ -116,8 +131,18 @@ class DPSpec:
         return 1.0 - (q * r) / (torch.abs(q) * torch.abs(r) + 1e-8)
 
     def reduce3(self, left, up, upleft):
-        """Hard-min in the operand order ``min(min(left, up), upleft)``."""
-        return torch.minimum(torch.minimum(left, up), upleft)
+        """The 3-way predecessor reduction.  Hard-min keeps the operand
+        order ``min(min(left, up), upleft)``.  Soft-min is
+        ``-gamma * logsumexp(-x / gamma)`` in min-shifted form, as in
+        ``repro.core.spec.DPSpec.reduce3``: every exponent is <= 0 by
+        construction, and the shift contributes no gradient."""
+        mn = torch.minimum(torch.minimum(left, up), upleft)
+        if not self.soft:
+            return mn
+        s = (torch.exp(-(left - mn) / self.gamma)
+             + torch.exp(-(up - mn) / self.gamma)
+             + torch.exp(-(upleft - mn) / self.gamma))
+        return mn - self.gamma * torch.log(s)
 
     def cell_update(self, cost, left, up, upleft, *, free_start=None):
         """One DP cell: ``cost + reduce3(...)``; where ``free_start`` is

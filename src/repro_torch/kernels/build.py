@@ -1,9 +1,11 @@
 """Build the port's CUDA sources at first use and bind them with ctypes.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds, not minutes).  Every source is compiled by its own
-``nvcc`` process, all started together.  Libraries go to
+Each library is one ``csrc/*.cu`` source compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds, not minutes); ``wavefront.cu`` gives
+two, its hard-min half and, under ``-DREPRO_SOFT``, its soft-min half.
+Every library is compiled by its own ``nvcc`` process, all started
+together.  Libraries go to
 ``build/repro_torch/`` at the repository root, named by a hash of the
 source, the flags and ``nvcc --version``, so neither an edited source
 nor another compiler is ever served by a stale library.  A failed build raises; nothing falls back.
@@ -26,9 +28,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
           "-Xptxas", "-v", "-lineinfo"]
-# -fmad=false: the wavefront must round (q - r) * (q - r) + min(...)
-# exactly as the plain version does (no fused multiply-add).
-EXTRA = {"wavefront": ["-fmad=false"], "normalizer": []}
+# library name -> (source, extra flags).  -fmad=false: the hard-min
+# wavefront must round (q - r) * (q - r) + min(...) exactly as the plain
+# version does (no fused multiply-add); the soft-min sweeps are held to a
+# tolerance and keep the default contraction.
+TARGETS = {"wavefront": ("wavefront.cu", ["-fmad=false"]),
+           "soft_wavefront": ("wavefront.cu", ["-DREPRO_SOFT"]),
+           "normalizer": ("normalizer.cu", [])}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -81,12 +87,13 @@ def _nvcc_version() -> str:
                           text=True, timeout=60, check=True).stdout
 
 
-def _target(name: str) -> tuple[Path, list[str]]:
-    src = CSRC / f"{name}.cu"
-    flags = ARCH + COMMON + EXTRA[name]
+def _target(name: str) -> tuple[Path, Path, list[str]]:
+    source, extra = TARGETS[name]
+    src = CSRC / source
+    flags = ARCH + COMMON + extra
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
                             + _nvcc_version().encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so", flags
+    return BUILD_DIR / f"lib{name}-{digest}.so", src, flags
 
 
 def build_all() -> dict[str, str]:
@@ -95,12 +102,12 @@ def build_all() -> dict[str, str]:
     made now.  Raises with nvcc's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in EXTRA:
-        out, flags = _target(name)
+    for name in TARGETS:
+        out, src, flags = _target(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, out)
@@ -109,7 +116,7 @@ def build_all() -> dict[str, str]:
         text, _ = proc.communicate()
         logs[name] = text
         if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n"
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n"
                           f"{text}")
             continue
         os.replace(tmp, out)
@@ -119,11 +126,12 @@ def build_all() -> dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library ``name`` (a key of :data:`TARGETS`), built on
+    first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            out, _ = _target(name)
+            out, _, _ = _target(name)
             if not out.exists():
                 build_all()
             lib = _libs[name] = ctypes.CDLL(str(out))

@@ -18,7 +18,9 @@
 // mean = s/n, var = sq/n - mean^2 (biased), std = sqrt(max(var, eps)),
 // the moment formula of repro/core/normalize.py.  The summation order
 // differs from the plain version, so the two agree to about 1e-5, not
-// bit for bit.
+// bit for bit.  When asked (stats != nullptr) thread 0 also writes the
+// row's (mean, var), the residuals of the analytic backward in
+// kernels/normalizer.py.
 
 #include <cuda_runtime.h>
 
@@ -33,7 +35,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 __global__ void normalizer_kernel(const float* __restrict__ x,
-                                  float* __restrict__ y, int n, float eps) {
+                                  float* __restrict__ y,
+                                  float* __restrict__ row_stats, int n,
+                                  float eps) {
   __shared__ float part_s[32];
   __shared__ float part_q[32];
   __shared__ float stats[2];
@@ -65,6 +69,10 @@ __global__ void normalizer_kernel(const float* __restrict__ x,
       const float var = sq / n - mean * mean;
       stats[0] = mean;
       stats[1] = sqrtf(fmaxf(var, eps));
+      if (row_stats != nullptr) {
+        row_stats[2 * blockIdx.x] = mean;
+        row_stats[2 * blockIdx.x + 1] = var;
+      }
     }
   }
   __syncthreads();
@@ -76,12 +84,14 @@ __global__ void normalizer_kernel(const float* __restrict__ x,
 
 extern "C" {
 
-// x, y: (rows, n) f32, row-major and contiguous.  Returns cudaGetLastError().
-int normalizer_launch(const void* x, void* y, int rows, int n, float eps,
-                      void* stream) {
+// x, y: (rows, n) f32, row-major and contiguous; stats: (rows, 2) f32
+// (mean, biased var) or null.  Returns cudaGetLastError().
+int normalizer_launch(const void* x, void* y, void* stats, int rows, int n,
+                      float eps, void* stream) {
   const int threads = n >= 8192 ? 1024 : 256;
   normalizer_kernel<<<rows, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(y), n, eps);
+      static_cast<const float*>(x), static_cast<float*>(y),
+      static_cast<float*>(stats), n, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

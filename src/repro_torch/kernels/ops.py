@@ -1,10 +1,12 @@
 """The public wrappers of the port's kernels: segment-width policy, the
-reference layout, the static blocked-band answer and the clamp of
-indices to the true reference.
+reference layouts (forward, and reverse for the soft-DTW backward), the
+static blocked-band answer and the clamp of indices to the true
+reference.
 
 Counterpart of ``repro.kernels.ops``.  The contract is ported, not the
 TPU layout: no (8, 128) packing, no swizzle, no ``PAD_VALUE`` columns;
-the wavefront takes a zero-padded 1-D reference and guards ``j < n``.
+the wavefront takes a zero-padded 1-D reference and guards ``j < n``
+(the reverse sweep masks its padding instead).  Soft-min specs run K5.
 """
 
 from __future__ import annotations
@@ -62,6 +64,16 @@ def prepare_reference(reference: torch.Tensor,
         reference, validate_segment_width(segment_width))
 
 
+def prepare_reference_reverse(reference: torch.Tensor,
+                              segment_width: int) -> torch.Tensor:
+    """The reverse sweep's layout for one width (the counterpart of
+    ``repro.kernels.ops.swizzle_reference_reverse``): the flipped
+    reference, left-padded so that reverse chunk ``R-1-c`` covers the
+    columns of forward chunk ``c``."""
+    return wavefront.prepare_reference_reverse(
+        reference, validate_segment_width(segment_width))
+
+
 def band_blocked(m: int, n: int, band: int | None) -> bool:
     """True when the band excludes every bottom-row cell: row m-1 has no
     column within ``band`` of it inside [0, n)."""
@@ -92,6 +104,13 @@ def sdtw_wavefront_prepped(queries: torch.Tensor, r_layout: torch.Tensor,
             return costs, torch.full((B,), NO_WINDOW, dtype=torch.int32,
                                      device=dev), ends
         return costs, ends
+    if sp.soft:
+        if return_window:
+            raise ValueError("return_window needs a hard-min spec: "
+                             "soft-min has no argmin path")
+        costs, ends = wavefront.soft_wavefront(queries, r_layout, n=n, w=w,
+                                               spec=sp)
+        return costs, torch.clamp(ends, max=n - 1)
     out = wavefront.wavefront(queries, r_layout, n=n, w=w, spec=sp,
                               with_window=return_window)
     if return_window:

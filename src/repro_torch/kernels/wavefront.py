@@ -1,16 +1,26 @@
-"""K1/K3/K4: the hard-min sDTW wavefront kernel (``csrc/wavefront.cu``),
-its plan geometry, its plain PyTorch version and its launch counter.
+"""The sDTW wavefront kernels (``csrc/wavefront.cu``), their plan
+geometry, their plain PyTorch versions and their launch counters.
 
-Replaces ``repro/kernels/wavefront.py::wavefront_call`` under the
-hard-min sdtw plans: cost + end (K1), + start (K3, ``with_window``),
-under a Sakoe–Chiba band with band-skip (K4).
+Replace ``repro/kernels/wavefront.py::wavefront_call`` under the sdtw
+plans:
+
+* hard-min (``wavefront``): cost + end (K1), + start (K3,
+  ``with_window``), under a Sakoe–Chiba band with band-skip (K4);
+* soft-min (``soft_wavefront``, ``soft_checkpoint``): the soft forward
+  (K5, ``SoftMinFold``), and the checkpointed forward and the reverse
+  sweep of the soft-DTW backward (K6, ``checkpoint=True`` /
+  ``reverse=True``).
 
 Geometry (the port's own, not the TPU's (8, 128) tiles): one warp per
 query; lane l of chunk c owns the ``w`` reference columns
 ``(c * 32 + l) * w + k``.  The reference layout is the normalized
 reference zero-padded to a whole number of chunks; columns past the true
-length ``n`` are computed and never folded.  A CPU tensor takes the
-plain version; a CUDA tensor launches the kernel or raises.
+length ``n`` are computed and never folded.  A reverse sweep reads the
+flipped reference left-padded to the same length
+(:func:`prepare_reference_reverse`), so reverse chunk ``R-1-c`` covers
+forward chunk ``c``; its pad columns (original ``j >= n``) are masked to
+``SOFT_BIG``.  A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -20,7 +30,7 @@ import ctypes
 import torch
 
 from repro_torch.core.engine import sdtw_engine
-from repro_torch.core.spec import DPSpec
+from repro_torch.core.spec import INF, SOFT_BIG, DPSpec
 from repro_torch.kernels import build
 
 WARP = 32
@@ -28,6 +38,7 @@ WIDTHS = (2, 4, 8, 14, 16, 32)     # the instantiations in wavefront.cu
 SMEM_LIMIT = 232_448               # dynamic shared memory per block, H100
 KERNEL_DISTANCES = ("sqeuclidean", "abs")
 counter = build.LaunchCounter("wavefront")
+soft_counter = build.LaunchCounter("soft_wavefront")
 
 
 def variant(spec: DPSpec, with_window: bool) -> str:
@@ -66,6 +77,34 @@ def prepare_reference(r: torch.Tensor, w: int) -> torch.Tensor:
         .contiguous()
 
 
+def prepare_reference_reverse(r: torch.Tensor, w: int) -> torch.Tensor:
+    """(n,) -> (num_chunks * 32 * w,): ``flip(r)`` zero-padded on the
+    LEFT to the forward layout's length, the reverse sweep's layout.
+    Flipped column ``j'`` is original column ``n_pad - 1 - j'``."""
+    n = r.shape[0]
+    pad = num_chunks(n, w) * chunk_cols(w) - n
+    return torch.nn.functional.pad(torch.flip(r.to(torch.float32), (0,)),
+                                   (pad, 0)).contiguous()
+
+
+def soft_geometry(m: int, n: int, n_pad: int, w: int, band: int | None,
+                  reverse: bool) -> tuple[int, int, int, int]:
+    """(chunk0, chunks, jlim, shift) of a soft sweep over a layout of
+    ``n_pad`` columns.  Forward: chunks [0, visited), fold j < n.
+    Reverse: the band leaves the same number of chunks alive, but the
+    dead ones lead (original ``j > m - 1 + band`` is flipped ``j' <
+    n_pad - m - band``), so the sweep starts ``chunk0`` chunks in;
+    flipped columns ``j' < jlim = n_pad - n`` are padding, and the band
+    test shifts by ``m - n_pad`` (original ``i - j = shift - (i' -
+    j')``).  The port's counterpart of ``KernelPlan.block_offset`` and
+    ``KernelPlan.band_shift``, in 32·w-column chunks."""
+    total = n_pad // chunk_cols(w)
+    visited = band_grid_chunks(m, band, total, w)
+    if reverse:
+        return total - visited, visited, n_pad - n, m - n_pad
+    return 0, visited, n, 0
+
+
 def strip_bytes(m: int, with_window: bool) -> int:
     """Shared memory of one warp: two strips of m f32 (+ two of i32)."""
     return (4 if with_window else 2) * 4 * m
@@ -78,6 +117,9 @@ def validate(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
         raise ValueError(
             f"segment_width={w} has no wavefront kernel instantiation; "
             f"choose one of {WIDTHS}")
+    if spec.soft and with_window:
+        raise ValueError("with_window needs a hard-min spec: soft-min has "
+                         "no argmin path")
     if spec.distance not in KERNEL_DISTANCES:
         raise ValueError(
             f"the wavefront kernel computes {KERNEL_DISTANCES}, not "
@@ -162,3 +204,189 @@ def wavefront(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
                               with_window=with_window)
     return wavefront_plain(q, r_layout, n=n, w=w, spec=spec,
                            with_window=with_window)
+
+
+# ------------------------------------------------------------ soft-min
+def soft_variant(reverse: bool, checkpoint: bool) -> str:
+    """K5 (soft forward), K6-forward (+ checkpoint strips), K6-reverse."""
+    if reverse:
+        return "K6-reverse"
+    return "K6-forward" if checkpoint else "K5"
+
+
+def soft_tile(C: torch.Tensor, valid: torch.Tensor, left_col: torch.Tensor,
+              *, spec: DPSpec, reverse: bool) -> torch.Tensor:
+    """One chunk's soft DP tile from its left boundary column.
+
+    C: (B, m, W) local costs; valid: (m, W) or (B, m, W) bool, False for
+    masked cells (out of band; reverse padding); left_col: (B, m), the
+    column at local j = -1 (a checkpoint strip; ``SOFT_BIG`` at the first
+    chunk).  Returns the (B, m, W) tile.  A skewed anti-diagonal sweep of
+    m + W - 1 steps, as ``repro.kernels.backward._tile``; ``reverse``
+    swaps in the mirrored boundary rules of the reverse sweep (flipped
+    row 0: no up, 0-weight termination in the upleft slot; flipped row
+    m-1: no left).
+    """
+    B, m, W = C.shape
+    big = spec.big
+    dev = C.device
+    ii = torch.arange(m, device=dev)
+    jl = torch.arange(m + W - 1, device=dev)[None, :] - ii[:, None]
+    skew = jl.clamp(0, W - 1).expand(B, m, -1)
+    Cs = C.gather(2, skew)
+    Vs = valid.expand(B, m, W).gather(2, skew) & (jl >= 0) & (jl < W)
+    left_up = torch.cat([torch.full((B, 1), big, device=dev),
+                         left_col[:, :-1]], dim=1)
+    row0, last = ii == 0, ii == m - 1
+    d1 = torch.full((B, m), big, device=dev)
+    d2 = d1
+    Ds = torch.empty_like(Cs)
+    for t in range(m + W - 1):
+        edge = jl[:, t] == 0            # local column 0 reads the boundary
+        left = torch.where(edge, left_col, d1)
+        up = torch.roll(d1, 1, -1)
+        upleft = torch.where(edge, left_up, torch.roll(d2, 1, -1))
+        if reverse:
+            d0 = Cs[:, :, t] + spec.reduce3(
+                torch.where(last, big, left), torch.where(row0, big, up),
+                torch.where(row0, 0.0, upleft))
+        else:
+            d0 = spec.cell_update(Cs[:, :, t], left, up, upleft,
+                                  free_start=row0)
+        d0 = torch.where(Vs[:, :, t], d0, big)
+        Ds[:, :, t] = d0
+        d2, d1 = d1, d0
+    unskew = (ii[:, None] + torch.arange(W, device=dev)[None, :])
+    return Ds.gather(2, unskew.expand(B, m, W))
+
+
+def tile_valid(m: int, cols: torch.Tensor, spec: DPSpec, *, jlim: int,
+               shift: int, reverse: bool) -> torch.Tensor:
+    """(m, len(cols)) mask of a tile's live cells in the sweep's own
+    column coordinates ``cols``: in band, and for a reverse sweep not
+    padding (``cols >= jlim``)."""
+    ii = torch.arange(m, device=cols.device)[:, None]
+    valid = ((cols >= jlim) if reverse else torch.ones_like(
+        cols, dtype=torch.bool))[None, :].expand(m, -1)
+    in_band = spec.band_valid(ii, cols[None, :] + shift)
+    return valid if in_band is None else valid & in_band
+
+
+def soft_readout(bottom: torch.Tensor, foldable: torch.Tensor,
+                 spec: DPSpec):
+    """Soft cost and hard end of a (B, cols) bottom row over the
+    ``foldable`` columns: ``-gamma * logsumexp(-x / gamma)``, and +inf
+    where no foldable cell is reachable (a blocked band)."""
+    vals = torch.where(foldable, bottom, spec.big)
+    end = torch.argmin(vals, dim=1)          # first minimum: earliest
+    best = vals.gather(1, end[:, None])[:, 0]
+    x = torch.where(foldable, -bottom / spec.gamma, -INF)
+    cost = -spec.gamma * torch.logsumexp(x, dim=1)
+    return torch.where(best >= SOFT_BIG / 2, INF, cost), end.to(torch.int32)
+
+
+def checkpoint_plain(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
+                     w: int, spec: DPSpec, reverse: bool = False):
+    """The plain version of K6: the chunk loop of the kernel, each chunk
+    a :func:`soft_tile` from the previous chunk's last column.  Returns
+    (cost, end, strips (B, chunks, m)) as :func:`soft_checkpoint`."""
+    B, m = q.shape
+    W = chunk_cols(w)
+    chunk0, chunks, jlim, shift = soft_geometry(
+        m, n, r_layout.shape[0], w, spec.band, reverse)
+    left = torch.full((B, m), spec.big, device=q.device)
+    strips, bottoms = [], []
+    for c in range(chunk0, chunk0 + chunks):
+        cols = torch.arange(c * W, (c + 1) * W, device=q.device)
+        C = spec.cell_cost(q[:, :, None], r_layout[cols][None, None, :])
+        valid = tile_valid(m, cols, spec, jlim=jlim, shift=shift,
+                           reverse=reverse)
+        D = soft_tile(C, valid, left, spec=spec, reverse=reverse)
+        strips.append(left)
+        left = D[:, :, -1]
+        bottoms.append(D[:, -1, :])
+    cols = torch.arange(chunk0 * W, (chunk0 + chunks) * W, device=q.device)
+    foldable = (cols >= jlim) if reverse else (cols < jlim)
+    in_band = spec.band_valid(m - 1, cols + shift)
+    if in_band is not None:
+        foldable = foldable & in_band
+    cost, end = soft_readout(torch.cat(bottoms, dim=1), foldable, spec)
+    return cost, end + chunk0 * W, torch.stack(strips, dim=1)
+
+
+def soft_plain(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
+               spec: DPSpec):
+    """The plain version of K5: the port's soft engine over the same
+    visited columns of the same layout, folding j < n only."""
+    chunks = band_grid_chunks(q.shape[1], spec.band,
+                              r_layout.shape[0] // chunk_cols(w), w)
+    return sdtw_engine(q, r_layout[:chunks * chunk_cols(w)], spec=spec,
+                       n_valid=n)
+
+
+def soft_cuda(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
+              spec: DPSpec, reverse: bool = False,
+              checkpoint: bool = False):
+    """Launch the soft kernel: one warp per query.  Returns (cost, end),
+    or (cost, end, strips) for a checkpoint or reverse sweep."""
+    B, m = q.shape
+    chunk0, chunks, jlim, shift = soft_geometry(
+        m, n, r_layout.shape[0], w, spec.band, reverse)
+    strips = checkpoint or reverse
+    cost = torch.empty((B,), dtype=torch.float32, device=q.device)
+    end = torch.empty((B,), dtype=torch.int32, device=q.device)
+    ckpt = (torch.empty((B, chunks, m), dtype=torch.float32,
+                        device=q.device) if strips else None)
+    lib = build.library("soft_wavefront")
+    fn = lib.soft_wavefront_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 4)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = fn(q.data_ptr(), r_layout.data_ptr(), B, m, jlim, chunk0,
+                    chunks, -1 if spec.band is None else int(spec.band),
+                    shift, float(spec.gamma), w, int(reverse),
+                    int(spec.distance == "abs"), cost.data_ptr(),
+                    end.data_ptr(), 0 if ckpt is None else ckpt.data_ptr(),
+                    stream)
+    build.check(lib, status, f"soft wavefront launch (w={w}, B={B}, m={m}, "
+                             f"{soft_variant(reverse, checkpoint)})")
+    soft_counter.add(soft_variant(reverse, checkpoint))
+    return (cost, end, ckpt) if strips else (cost, end)
+
+
+def _check_soft(spec: DPSpec) -> None:
+    if not spec.soft:
+        raise ValueError(f"the soft wavefront needs a softmin spec, got "
+                         f"{spec.describe()}")
+
+
+def soft_wavefront(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
+                   w: int, spec: DPSpec):
+    """The K5 wrapper: soft cost and hard end of each query (end a raw
+    column; ``repro_torch.kernels.ops`` clamps it)."""
+    _check_soft(spec)
+    validate(q, r_layout, n=n, w=w, spec=spec, with_window=False)
+    if build.on_card(q):
+        return soft_cuda(q, r_layout, n=n, w=w, spec=spec)
+    return soft_plain(q, r_layout, n=n, w=w, spec=spec)
+
+
+def soft_checkpoint(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
+                    w: int, spec: DPSpec, reverse: bool = False):
+    """The K6 wrapper.  Forward (``reverse=False``): q (B, m) over
+    :func:`prepare_reference`; returns (cost, end, strips), strips[:, c]
+    the F column entering visited chunk c (``SOFT_BIG`` for c = 0).
+    Reverse: flipped queries over :func:`prepare_reference_reverse`;
+    returns the reverse cost readout (equal to the forward cost), the
+    flipped argmin column, and the B strips of the visited flipped
+    chunks, in flipped row order."""
+    _check_soft(spec)
+    validate(q, r_layout, n=n, w=w, spec=spec, with_window=False)
+    if build.on_card(q):
+        return soft_cuda(q, r_layout, n=n, w=w, spec=spec, reverse=reverse,
+                         checkpoint=True)
+    return checkpoint_plain(q, r_layout, n=n, w=w, spec=spec,
+                            reverse=reverse)

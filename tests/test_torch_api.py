@@ -105,9 +105,8 @@ def test_spec_from_dict():
     d = dataclasses.asdict(JaxSpec(distance="abs", band=5))
     spec = convert.spec_from_dict(d)
     assert dataclasses.asdict(spec) == d
-    with pytest.raises(NotPortedError, match="slice 2"):
-        convert.spec_from_dict(dataclasses.asdict(
-            JaxSpec(reduction="softmin")))
+    soft = dataclasses.asdict(JaxSpec(reduction="softmin", gamma=0.25))
+    assert dataclasses.asdict(convert.spec_from_dict(soft)) == soft
     with pytest.raises(NotPortedError, match="slice 4"):
         convert.spec_from_dict(dataclasses.asdict(JaxSpec(family="twed")))
     with pytest.raises(ValueError, match="unknown DPSpec field"):
@@ -115,11 +114,12 @@ def test_spec_from_dict():
 
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    (dict(reduction="softmin"), NotPortedError, "slice 2"),
-    (dict(gamma=0.5), NotPortedError, "slice 2"),
+    (dict(reduction="softmin", gamma=0.0), ValueError, "gamma > 0"),
+    (dict(gamma=0.5, outputs=("cost", "start")), ValueError,
+     "under soft-min"),
     (dict(family="erp"), NotPortedError, "slice 4"),
     (dict(outputs=("cost", "path")), NotPortedError, "slice 3"),
-    (dict(outputs="soft_alignment"), NotPortedError, "slice 2"),
+    (dict(outputs="soft_alignment"), ValueError, "under hard-min"),
     (dict(distance="cosine", backend="kernel"), ValueError,
      r"backend 'kernel' does not support distance 'cosine'.*\['engine', "
      r"'ref'\]"),

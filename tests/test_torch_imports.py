@@ -11,7 +11,9 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.align import soft
 from repro_torch.kernels import build, normalizer, wavefront
+from repro_torch.train.step import make_sdtw_loss
 
 ROOT = Path(__file__).resolve().parents[1]
 GUARD = r"""
@@ -31,7 +33,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert not any(k.split(".")[0] in ("jax", "repro") for k in sys.modules)
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -40,12 +42,18 @@ def test_no_jax_and_no_repro_in_the_port():
         [sys.executable, "-c", GUARD, str(ROOT / "src"), str(ROOT)],
         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    names = set(out.stdout.split())
+    assert len(names) >= 25
+    assert {"repro_torch.align.soft", "repro_torch.train.step",
+            "repro_torch.kernels.backward",
+            "repro_torch.core.softdtw"} <= names
 
 
 class _CardTensor:
-    """Stands in for a CUDA tensor: the dispatch reads only .device."""
+    """Stands in for a CUDA tensor: the dispatch reads only .device and
+    .requires_grad."""
     device = torch.device("cuda")
+    requires_grad = False
 
 
 def _forbid(*_, **__):
@@ -104,3 +112,42 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                              cwd=script.parent, env=env)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_soft_entry_points_without_a_card_raise(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("soft_plain", "checkpoint_plain", "wavefront_plain"):
+        monkeypatch.setattr(wavefront, name, _forbid)
+    monkeypatch.setattr(normalizer, "normalize_plain", _forbid)
+    q = np.zeros((2, 8), np.float32)
+    r = np.arange(40, dtype=np.float32)
+    for call in (lambda: repro_torch.sdtw(q, r, gamma=0.5),
+                 lambda: repro_torch.sdtw(q, r, gamma=0.5,
+                                          outputs="soft_alignment"),
+                 lambda: repro_torch.Aligner(r, backend="soft"),
+                 lambda: make_sdtw_loss(r, gamma=0.5),
+                 lambda: soft.expected_alignment(
+                     q, r, spec=repro_torch.DPSpec(reduction="softmin")),
+                 lambda: soft.soft_costs(q, r)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_cuda_tensor_never_reaches_a_soft_plain_version(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for name in ("soft_plain", "checkpoint_plain"):
+        monkeypatch.setattr(wavefront, name, _forbid)
+    monkeypatch.setattr(wavefront, "validate", lambda *a, **k: None)
+    launched = []
+    monkeypatch.setattr(
+        wavefront, "soft_cuda", lambda *a, reverse=False, checkpoint=False,
+        **k: launched.append(wavefront.soft_variant(reverse, checkpoint)))
+    card = _CardTensor()
+    spec = repro_torch.DPSpec(reduction="softmin")
+    wavefront.soft_wavefront(card, card, n=1, w=8, spec=spec)
+    wavefront.soft_checkpoint(card, card, n=1, w=8, spec=spec)
+    wavefront.soft_checkpoint(card, card, n=1, w=8, spec=spec, reverse=True)
+    assert launched == ["K5", "K6-forward", "K6-reverse"]
+    with pytest.raises(ValueError, match="softmin spec"):
+        wavefront.soft_wavefront(card, card, n=1, w=8,
+                                 spec=repro_torch.DPSpec())
