@@ -53,7 +53,22 @@ Phases, one JSON line each:
      each row's mass;
  10. ``soft_times``: K5, K6-forward and K6-reverse at PAPER, K6 and the
      tile pass at the training shape, plain versions, bounds;
- 11. the ``kernels`` line.
+ 11. ``family_parity``: K7 (twed, erp, local; hard and soft; both
+     distances; every width) against its plain version on references of
+     three chunks whose last chunk is partly padding, unbanded and
+     banded: hard bit for bit, soft within atol = rtol = 1e-4, ends
+     equal; a blocked corner answered with no launch;
+ 12. ``family_main_path``: each family x reduction at full PAPER width
+     through ``repro_torch.sdtw`` and an ``Aligner``, launch counts read
+     on their own, costs finite, corner ends n - 1, planted local ends
+     counted, each held to K7's plain version at PAPER's M and N (hard
+     local on all 512 queries, the other five on every 8th);
+ 13. ``family_times``: K7 at PAPER per family and reduction, bounds;
+ 14. ``bf16``: bf16-K1 against its plain version bit for bit (every
+     width, band, distance, with and without the start lane; and at
+     PAPER through ``ops.sdtw_wavefront(compute_dtype=bfloat16)``), the
+     JAX bar at the JAX test's shape, ends at PAPER against float32;
+ 15. the ``kernels`` line.
 The last line is the verdict ``{"ok": true, "device": {...}}``, printed
 only when every phase passed on the card.  Any failure raises and exits
 non-zero.  With no card (and no ``--cpu``) the script exits 1 at once.
@@ -95,6 +110,40 @@ SOFT_MUFU_OPS_PER_CELL = 3
 MUFU_LANES = 132 * 16
 PAPER_GAMMA = 1.0        # the DPSpec default
 TRAIN_STEPS = 5
+# The recurrence families at the parameters of the JAX package's family
+# benchmark (benchmarks/family_matrix.py:28-33), gamma 0.7 under soft-min.
+FAMILY_PARAMS = {"twed": dict(nu=0.5, lam=0.75), "erp": dict(gap=0.25),
+                 "local": dict(gap_penalty=0.6, match_reward=1.1)}
+FAMILY_GAMMA = 0.7
+# K7's plain version sweeps every diagonal of PAPER with a few dozen torch
+# launches each (about 40 s a request at full batch): hard local is held
+# to it at the full batch, the other five requests on every
+# PLAIN_QUERY_STRIDE-th query (64 of 512) at PAPER's M and N.
+PLAIN_QUERY_STRIDE = 8
+# Operations a cell that the family function needs, from DPSpec.family_cell
+# and the fold, with the terms that depend on the row alone or on the
+# column alone hoisted out of the cell (twed's t_left d(r_j, r_j-1) + nu +
+# lam and t_up d(q_i, q_i-1) + nu + lam; erp's d(r_j, g) and d(q_i, g)).
+# FP32: a distance is sub + mul (or abs); twed's t_diag 8 (two distances,
+# two adds, the |i - j| conversion, a mul); erp's 2; local's 3 (a
+# distance and the reward); then 3 adds of predecessor and transition and
+# the hard reduce3's 2 mins; local adds the floor's min and 2 fold
+# compares.  Soft-min replaces the 2 mins by reduce3's 10 FP32 and 3 MUFU
+# (see the K5 count above, less the cell's distance and add); local's
+# soft floor takes 6 FP32 and 2 MUFU (one exponential, one logarithm),
+# and its running logsumexp 3 FP32 and one exponential a cell beside the
+# 2 compares of its hard twin.
+FAMILY_OPS = {  # (variant, family) -> (FP32, MUFU) a cell
+    ("K7-corner", "twed"): (13, 0), ("K7-corner", "erp"): (7, 0),
+    ("K7-cells", "local"): (11, 0),
+    ("K7-soft-corner", "twed"): (21, 3), ("K7-soft-corner", "erp"): (15, 3),
+    ("K7-soft-cells", "local"): (27, 6)}
+# bf16-K1: the function is K1's 5 operations (sub, mul, min, min, add) in
+# bf16.  The H100 issues them packed, two bf16 elements per FP32 lane per
+# clock (HADD2/HMUL2/HMNMX2.BF16: NVIDIA's H100 data gives its non-tensor
+# bf16 rate as twice its float32 rate, 134 against 67 TFLOP/s).
+BF16_OPS_PER_CELL = 5
+BF16_PER_LANE = 2
 
 
 def emit(obj) -> None:
@@ -140,7 +189,15 @@ def ptxas_summary(logs: dict) -> dict:
             if m:
                 current = {"entry": m.group(1)}
                 t = re.search(r"ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", m.group(1))
-                if t:
+                f = re.search(r"family_kernelILi(\d+)ELi(\d)ELb(\d)ELb(\d)E",
+                              m.group(1))
+                if f:
+                    current.update(w=int(f.group(1)),
+                                   family=("twed", "erp",
+                                           "local")[int(f.group(2))],
+                                   band=bool(int(f.group(3))),
+                                   abs=bool(int(f.group(4))))
+                elif t:
                     second = "reverse" if "soft" in m.group(1) else "window"
                     current.update(w=int(t.group(1)),
                                    **{second: bool(int(t.group(2)))},
@@ -219,15 +276,18 @@ class Timer:
         return e0.elapsed_time(e1) / reps
 
 
-def least_time(c, n_bytes: float, fp32_ops: float, mufu_ops: float = 0.0):
+def least_time(c, n_bytes: float, fp32_ops: float, mufu_ops: float = 0.0,
+               bf16_ops: float = 0.0):
     """Least time (ms) and what bounds it: bytes over the memory rate
-    against FP32 operations over the lane issue rate and special-function
-    operations over the MUFU rate, both at the card's maximum SM clock."""
+    against FP32 operations over the lane issue rate, special-function
+    operations over the MUFU rate and bf16 operations over the packed
+    bf16 rate, all at the card's maximum SM clock."""
     if not c.cuda:
         return None, "operations"
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(fp32_ops / c.lane_ops_per_s,
-                mufu_ops / (MUFU_LANES * c.clock_max * 1e6)) * 1e3
+                mufu_ops / (MUFU_LANES * c.clock_max * 1e6),
+                bf16_ops / (BF16_PER_LANE * c.lane_ops_per_s)) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                  else "operations")
 
@@ -666,6 +726,334 @@ def soft_times(c, main_soft: dict, train: dict) -> dict:
     return out
 
 
+def family_spec(fam: str, soft: bool, band=None,
+                distance: str = "sqeuclidean"):
+    from repro_torch.core.spec import resolve_spec
+    return resolve_spec(None, family=fam, band=band, distance=distance,
+                        reduction="softmin" if soft else "hardmin",
+                        gamma=FAMILY_GAMMA if soft else None,
+                        **FAMILY_PARAMS[fam])
+
+
+def family_parity(c) -> None:
+    """K7, every instantiation, against its plain version."""
+    np, torch = c.np, c.torch
+    from repro_torch.core.normalize import normalize_batch
+    from repro_torch.kernels import family, ops, wavefront
+    rng = np.random.default_rng(c.seed + 5)
+
+    def series(*shape):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return normalize_batch(x.to(c.dev))
+
+    widths = wavefront.WIDTHS if c.cuda else (2, 4)
+    W = wavefront.chunk_cols(max(widths))
+    n = 2 * W + W // 2 + 3     # three chunks at the widest width, the
+    #                            last part padding (at every width)
+    checked = mismatches = blocked = 0
+    worst = {"hard": 0.0, "soft": 0.0}
+    before = dict(family.counter.by_variant)
+    for fam in ("twed", "erp", "local"):
+        # (B, m, band): unbanded, and a band that masks cells but keeps
+        # the corner (twed, erp) or skips chunks (local)
+        cases = [(9, 33, None),
+                 (1, 200, 64 if fam == "local" else n - 200 + 37)]
+        for soft in (False, True):
+            for distance in ("sqeuclidean", "abs"):
+                for B, m, band in cases:
+                    spec = family_spec(fam, soft, band, distance)
+                    q, r = series(B, m), series(n)
+                    lay2 = ops.prepare_reference(r, 2)
+                    want = family.family_plain(
+                        q, lay2, ops.family_extras(spec, q, r,
+                                                   segment_width=2),
+                        n=n, w=2, spec=spec)
+                    for w in widths:
+                        got = family.family_wavefront(
+                            q, ops.prepare_reference(r, w),
+                            ops.family_extras(spec, q, r, segment_width=w),
+                            n=n, w=w, spec=spec)
+                        c.sync()
+                        err = float((got[0] - want[0]).abs().max())
+                        kind = "soft" if soft else "hard"
+                        worst[kind] = max(worst[kind], err)
+                        ok = torch.equal(got[1], want[1]) and (
+                            bool(torch.allclose(got[0], want[0], rtol=1e-4,
+                                                atol=1e-4)) if soft
+                            else torch.equal(got[0], want[0]))
+                        checked += 1
+                        if not ok:
+                            mismatches += 1
+                            emit({"phase": "family_mismatch", "w": w,
+                                  "spec": spec.describe(), "B": B, "m": m,
+                                  "n": n,
+                                  "got": [x.tolist()[:4] for x in got],
+                                  "want": [x.tolist()[:4] for x in want]})
+                if fam != "local":
+                    # band < |m - n|: the corner is cut off, no launch
+                    spec = family_spec(fam, soft, n - 33 - 1)
+                    q, r = series(3, 33), series(n)
+                    k = family.counter.count
+                    out = ops.sdtw_wavefront(q, r, segment_width=2,
+                                             spec=spec)
+                    c.sync()
+                    require(family.counter.count == k
+                            and bool(torch.isinf(out[0]).all())
+                            and bool((out[1] == 0).all()),
+                            f"blocked {spec.describe()} launched or "
+                            f"answered wrong")
+                    blocked += 1
+    launches = {k: v - before.get(k, 0)
+                for k, v in family.counter.by_variant.items()}
+    emit({"phase": "family_parity", "rule": "hard bit-equal to the plain "
+          "version, soft within atol=rtol=1e-4, ends equal",
+          "n": n, "widths": list(widths), "cases": checked,
+          "mismatches": mismatches, "worst_abs_err": worst,
+          "blocked_corner_cases_no_launch": blocked, "launches": launches})
+    require(mismatches == 0, f"{mismatches} K7 cases differ from the "
+                             f"plain version")
+
+
+def family_main_path(c, queries_np, ref_np, planted) -> dict:
+    """Each family x reduction at PAPER through repro_torch.sdtw and an
+    Aligner, each held to its plain version at PAPER's M and N: hard
+    local on the full batch, the other five on every
+    PLAIN_QUERY_STRIDE-th query of it."""
+    torch = c.torch
+    import repro_torch
+    from repro_torch.core.normalize import normalize_batch
+    from repro_torch.kernels import family, normalizer, ops, wavefront
+    cfg = c.cfg
+    w, m, n, B = cfg.segment_width, cfg.query_len, cfg.ref_len, cfg.batch
+    qn = normalize_batch(torch.from_numpy(queries_np).to(c.dev))
+    requests, launches, out = [], {}, {}
+    for fam in ("twed", "erp", "local"):
+        for soft in (False, True):
+            spec = family_spec(fam, soft)
+            var = family.variant(spec)
+            for counter in (normalizer.counter, wavefront.counter,
+                            wavefront.soft_counter, family.counter):
+                counter.reset()
+            t0 = time.perf_counter()
+            res = repro_torch.sdtw(queries_np, ref_np, spec=spec,
+                                   segment_width=w, device=c.dev,
+                                   backend=c.backend)
+            aligner = repro_torch.Aligner(ref_np, spec=spec,
+                                          segment_width=w, device=c.dev,
+                                          backend=c.backend)
+            al = aligner(queries_np)
+            c.sync()
+            seconds = time.perf_counter() - t0
+            got = {"normalizer": normalizer.counter.count,
+                   "family_wavefront": dict(family.counter.by_variant),
+                   "wavefront": dict(wavefront.counter.by_variant),
+                   "soft_wavefront": dict(wavefront.soft_counter.by_variant)}
+            require(not c.cuda or got == {
+                "normalizer": 4, "family_wavefront": {var: 2},
+                "wavefront": {}, "soft_wavefront": {}},
+                f"{spec.describe()} launches {got}: want 4 normalizer "
+                f"and {var} twice")
+            launches[var] = launches.get(var, 0) + got[
+                "family_wavefront"].get(var, 0)
+            for x in (res.cost, res.end, al.cost, al.end):
+                require(tuple(x.shape) == (B,), f"output shape {x.shape}")
+            require(bool(torch.isfinite(res.cost).all()),
+                    f"{spec.describe()}: non-finite cost")
+            require(torch.equal(res.cost, al.cost)
+                    and torch.equal(res.end, al.end),
+                    f"{spec.describe()}: sdtw and Aligner disagree")
+            info = {"spec": spec.describe(), "variant": var,
+                    "seconds": seconds, "backend": aligner.backend.name,
+                    "launches": got,
+                    "cost_range": [float(res.cost.min()),
+                                   float(res.cost.max())]}
+            if fam == "local":
+                planted_end = torch.from_numpy(planted).to(c.dev) + m - 1
+                info["ends_at_planted_window_end"] = int(
+                    (res.end.long() == planted_end).sum())
+            else:
+                require(bool((res.end == n - 1).all()),
+                        f"{spec.describe()}: a corner end is not n - 1")
+            # the plain version at PAPER's M and N on the same inputs:
+            # the full batch for hard local, every PLAIN_QUERY_STRIDE-th
+            # query for the other five
+            stride = 1 if (fam == "local" and not soft) \
+                else PLAIN_QUERY_STRIDE
+            pq = qn[::stride].contiguous()
+            layout = aligner.layout()
+            extras = aligner.family_extras() + tuple(
+                x[::stride].contiguous()
+                for x in ops.family_extras_query(spec, qn))
+            got_c, got_e = res.cost[::stride], res.end[::stride]
+            shape = [pq.shape[0], m, n]
+            c.sync()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                p_c, p_e = family.family_plain(pq, layout, extras, n=n,
+                                               w=w, spec=spec)
+            c.sync()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = float((got_c - p_c).abs().max())
+            ok = torch.equal(got_e, p_e) and (
+                bool(torch.allclose(got_c, p_c, rtol=1e-4, atol=1e-4))
+                if soft else torch.equal(got_c, p_c))
+            require(ok, f"{spec.describe()}: K7 differs from its plain "
+                        f"version at {shape} (max abs {err})")
+            info.update(plain_shape=shape, plain_ms=plain_ms,
+                        max_abs_err=err,
+                        parity="within atol=rtol=1e-4" if soft
+                        else "bit-equal")
+            requests.append(info)
+            out[(fam, soft)] = {"spec": spec, "plain_ms": plain_ms,
+                                "plain_shape": shape, "max_abs_err": err,
+                                "aligner": aligner, "plain_inputs": (
+                                    pq, extras)}
+    emit({"phase": "family_main_path", "workload": {
+              "batch": B, "query_len": m, "ref_len": n, "segment_width": w,
+              "params": FAMILY_PARAMS, "gamma": FAMILY_GAMMA},
+          "requests": requests, "launches": launches})
+    return {"requests": out, "launches": launches, "qn": qn}
+
+
+def family_times(c, fm: dict) -> dict:
+    """K7 at PAPER for each family and reduction (CUDA events), on the
+    plain version's queries beside its time, and the bounds."""
+    from repro_torch.kernels import family, ops
+    cfg = c.cfg
+    w, m, n, B = cfg.segment_width, cfg.query_len, cfg.ref_len, cfg.batch
+    qn = fm["qn"]
+    rows = {}
+    for (fam, soft), info in fm["requests"].items():
+        spec, aligner = info["spec"], info["aligner"]
+        layout = aligner.layout()
+        extras = aligner.family_extras() + ops.family_extras_query(spec, qn)
+        reps = (1 if soft else 2) if c.cuda else 1
+        ms = c.timer(lambda: family.family_wavefront(
+            qn, layout, extras, n=n, w=w, spec=spec), reps)
+        pq, pex = info["plain_inputs"]
+        ms_p = ms if pq.shape[0] == B else c.timer(
+            lambda: family.family_wavefront(pq, layout, pex, n=n, w=w,
+                                            spec=spec), reps)
+        var = family.variant(spec)
+        fp32, mufu = FAMILY_OPS[(var, fam)]
+        cells = B * m * n
+        in_bytes = (B * m + n) * 4 + (n * 4 if fam != "local" else 0) \
+            + (B * m * 4 if fam == "erp" else 0)
+        bound, by = least_time(c, in_bytes + B * 8, fp32 * cells,
+                               mufu * cells)
+        rows[(fam, soft)] = {
+            "spec": spec.describe(), "variant": var, "ms": ms,
+            "ms_at_plain_shape": ms_p, "plain_ms": info["plain_ms"],
+            "plain_shape": info["plain_shape"], "bound_ms": bound,
+            "bound_by": by, "fp32_ops_a_cell": fp32,
+            "mufu_ops_a_cell": mufu, "max_abs_err": info["max_abs_err"]}
+    emit({"phase": "family_times", "clock": "cuda events" if c.cuda
+          else "host clock (cpu rehearsal, not a device number)",
+          "paper": {"batch": B, "query_len": m, "ref_len": n,
+                    "segment_width": w},
+          "rows": list(rows.values())})
+    return rows
+
+
+def bf16_phase(c, main_res, layout, qn) -> dict:
+    """bf16-K1: every instantiation against its plain version; at PAPER
+    through ops.sdtw_wavefront(compute_dtype=bfloat16), bit-equal to the
+    plain version, ends against the float32 main path; the JAX bar
+    (rtol 0.1, atol 0.3 against float32) at the JAX test's own shape."""
+    np, torch = c.np, c.torch
+    from repro_torch.core.normalize import normalize_batch
+    from repro_torch.core.spec import DPSpec
+    from repro_torch.kernels import ops, wavefront
+    bf = torch.bfloat16
+    rng = np.random.default_rng(c.seed + 7)
+
+    def series(*shape):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return normalize_batch(x.to(c.dev))
+
+    widths = wavefront.WIDTHS if c.cuda else (2, 4)
+    checked = mismatches = 0
+    B, m, n = (9, 200, 3000) if c.cuda else (3, 33, 300)
+    q, r = series(B, m), series(n)
+    for band in (None, 0, 900):
+        for distance in ("sqeuclidean", "abs"):
+            for window in (False, True):
+                spec = DPSpec(band=band, distance=distance)
+                want = wavefront.wavefront_plain(
+                    q, wavefront.prepare_reference(r, 2), n=n, w=2,
+                    spec=spec, with_window=window, compute_dtype=bf)
+                for w in widths:
+                    got = wavefront.wavefront(
+                        q, wavefront.prepare_reference(r, w), n=n, w=w,
+                        spec=spec, with_window=window, compute_dtype=bf)
+                    c.sync()
+                    checked += 1
+                    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                        mismatches += 1
+                        emit({"phase": "bf16_mismatch", "w": w,
+                              "band": band, "distance": distance,
+                              "window": window,
+                              "got": [a.tolist()[:4] for a in got],
+                              "want": [a.tolist()[:4] for a in want]})
+    require(mismatches == 0, f"{mismatches} bf16-K1 cases differ from the "
+                             f"plain version")
+    # the JAX package's own bar, at its test's shape (tests/
+    # test_kernel_sdtw.py::test_bf16_compute: 2 x 16 against 256, w 4)
+    jq, jr = series(2, 16), series(256)
+    f32 = ops.sdtw_wavefront(jq, jr, segment_width=4)
+    b16 = ops.sdtw_wavefront(jq, jr, segment_width=4, compute_dtype=bf)
+    c.sync()
+    bar_ok = bool(torch.allclose(b16[0], f32[0], rtol=0.1, atol=0.3))
+    require(bar_ok, f"bf16 at the JAX test's shape off the float32 "
+                    f"answer: {b16[0].tolist()} vs {f32[0].tolist()}")
+    # PAPER through the entry point a user calls, counted alone
+    cfg = c.cfg
+    w, n = cfg.segment_width, cfg.ref_len
+    wavefront.counter.reset()
+    rn = main_res["reference"]
+    got = ops.sdtw_wavefront(qn, rn, segment_width=w, compute_dtype=bf)
+    c.sync()
+    launches = dict(wavefront.counter.by_variant)
+    require(not c.cuda or launches == {"bf16-K1": 1},
+            f"bf16 path launches {launches}: want bf16-K1 once")
+    t0 = time.perf_counter()
+    want = wavefront.wavefront_plain(qn, layout, n=n, w=w, spec=DPSpec(),
+                                     compute_dtype=bf)
+    c.sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((got[0] - want[0]).abs().max())
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            f"bf16-K1 at PAPER differs from its plain version ({err})")
+    f32c, f32e = main_res["cost"], main_res["end"]
+    dev32 = (got[0] - f32c).abs()
+    ms = c.timer(lambda: wavefront.wavefront(
+        qn, layout, n=n, w=w, spec=DPSpec(), compute_dtype=bf),
+        3 if c.cuda else 1)
+    B, m = qn.shape
+    bound, by = least_time(c, (B * m + n) * 4 + B * 8, 0.0,
+                           bf16_ops=BF16_OPS_PER_CELL * B * m * n)
+    info = {"phase": "bf16", "parity_cases": checked,
+            "parity": "bit-equal to the plain version (the engine in "
+                      "bf16, float32 fold)",
+            "jax_bar_shape": [2, 16, 256], "jax_bar_ok": bar_ok,
+            "jax_bar": "rtol=0.1, atol=0.3 against float32",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "paper_ends_equal_f32": int((got[1] == f32e).sum()),
+            "paper_cost_vs_f32": {
+                "max_abs": float(dev32.max()),
+                "max_rel": float((dev32 / f32c.abs()).max()),
+                "f32_mean": float(f32c.mean()),
+                "bf16_mean": float(got[0].mean()),
+                "within_jax_bar": int(torch.isclose(
+                    got[0], f32c, rtol=0.1, atol=0.3).sum())}}
+    require(info["paper_ends_equal_f32"] == B,
+            f"bf16 ends at PAPER: {info['paper_ends_equal_f32']} of {B} "
+            f"equal the float32 ends")
+    emit(info)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -673,6 +1061,7 @@ def main(argv=None) -> int:
                          "plain versions; prints no verdict")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import numpy as np
     import torch
@@ -710,9 +1099,21 @@ def main(argv=None) -> int:
     if cuda:
         t0 = time.perf_counter()
         logs = build.build_all()
-        emit({"phase": "build", "seconds": time.perf_counter() - t0,
-              "built": sorted(logs),
-              "ptxas": ptxas_summary(logs)})
+        seconds = time.perf_counter() - t0
+        ptxas = ptxas_summary(logs)
+        out_dir = Path(__file__).resolve().parent / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "ptxas.json").write_text(json.dumps(ptxas, indent=1))
+        emit({"phase": "build", "seconds": seconds, "built": sorted(logs),
+              "ptxas_by_library": {
+                  name: {"instantiations": len(rows),
+                         "registers_max": max(r.get("registers", 0)
+                                              for r in rows),
+                         "spill_bytes": sum(r.get("spill_stores", 0)
+                                            + r.get("spill_loads", 0)
+                                            for r in rows)}
+                  for name, rows in ptxas.items()},
+              "ptxas_table": "chiprun_out/ptxas.json"})
 
     queries_np, ref_np, planted = make_data(np, cfg, args.seed)
     q_raw = torch.from_numpy(queries_np).to(dev)
@@ -985,8 +1386,49 @@ def main(argv=None) -> int:
     soft_alignment_phase(ctx)
     soft = soft_times(ctx, main_soft, train)
 
-    # ------------------------------------------------ 11. kernels line
+    # ---------------------------------- 11.-14. families and bf16-K1
+    family_parity(ctx)
+    fam_main = family_main_path(ctx, queries_np, ref_np, planted)
+    fam_rows = family_times(ctx, fam_main)
+    bf = bf16_phase(ctx, {"reference": aligner.reference, "cost": res.cost,
+                          "end": res.end}, layout, qn)
+
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
+
+    # ------------------------------------------------ 15. kernels line
     cu = "src/repro_torch/kernels/csrc/"
+    k7 = []
+    for key, name in ((("twed", False), "K7-corner"),
+                      (("local", False), "K7-cells"),
+                      (("twed", True), "K7-soft-corner"),
+                      (("local", True), "K7-soft-cells")):
+        row = fam_rows[key]
+        k7.append({
+            "name": f"family_wavefront_{name}", "route": "cuda",
+            "source": cu + "family_wavefront.cu",
+            "replaces": "src/repro/kernels/wavefront.py:967",
+            "path": f"repro_torch.sdtw and Aligner, {row['spec']} at PAPER "
+                    f"(ms and launches; bound at PAPER); plain_ms at "
+                    f"{row['plain_shape']}, beside ms_at_plain_shape",
+            "launches": fam_main["launches"].get(name, 0),
+            "parity": "within atol=rtol=1e-4 of the plain version"
+            if key[1] else "bit-equal to the plain version",
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "ms_at_plain_shape": row["ms_at_plain_shape"],
+            "plain_ms": row["plain_ms"], "plain_shape": row["plain_shape"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None})
+    k7.append({
+        "name": "wavefront_bf16_K1", "route": "cuda",
+        "source": cu + "wavefront.cu",
+        "replaces": "src/repro/kernels/wavefront.py:967",
+        "path": "repro_torch.kernels.ops.sdtw_wavefront(compute_dtype="
+                "torch.bfloat16) at PAPER",
+        "launches": bf["launches"].get("bf16-K1", 0),
+        "parity": "bit-equal to the plain version",
+        "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
+        "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
+        "bound_by": bf["bound_by"], "library_ms": None})
     emit({"kernels": [
         {"name": "wavefront_K1", "route": "cuda",
          "source": cu + "wavefront.cu",
@@ -1049,7 +1491,7 @@ def main(argv=None) -> int:
          "ms": soft["k6r_train_ms"], "plain_ms": soft["k6r_plain_ms"],
          "bound_ms": soft["k6r_bound_ms"], "bound_by": soft["k6_bound_by"],
          "library_ms": None},
-    ]})
+    ] + k7})
     if not cuda:
         return 0
     require(launches["normalizer"] > 0 and launches["wavefront"]
@@ -1060,6 +1502,8 @@ def main(argv=None) -> int:
                     for k in ("K6-forward", "K6-reverse"))
             and train["launches"]["normalizer"] > 0,
             "a kernel of the soft or training path was never launched")
+    require(all(k["launches"] > 0 for k in k7),
+            "a K7 variant or bf16-K1 was never launched on its path")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

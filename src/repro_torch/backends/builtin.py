@@ -3,12 +3,17 @@
 * ``ref``    — the torch row-scan oracle (slow, for validation);
 * ``engine`` — the torch anti-diagonal engine;
 * ``kernel`` — the CUDA wavefronts (their plain versions on a CPU
-  tensor); soft-min specs go through ``kernels.backward.sdtw_soft_fused``
-  so that autograd reaches the fused reverse-sweep backward;
+  tensor); soft-min sdtw specs go through
+  ``kernels.backward.sdtw_soft_fused`` so that autograd reaches the fused
+  reverse-sweep backward; the families run K7, which has no backward:
+  a soft family whose operands need a gradient raises, naming the
+  engine;
 * ``soft`` — an alias: the engine with ``reduction="softmin"``.
 
-All three run hard- and soft-min sdtw and are differentiable under
-soft-min; each adapter turns its sweep's tuple into an
+All three run hard- and soft-min sdtw and the families twed / erp /
+local; ``ref`` and ``engine`` serve ``start`` for sdtw, twed and erp,
+``kernel`` for sdtw only.  ref and engine are differentiable under
+soft-min for every family, the kernel for sdtw; each adapter turns its sweep's tuple into an
 :class:`~repro_torch.core.result.SDTWResult`.  ``soft_alignment`` is
 filled above the sweep (``core.api``), so every backend declares it.
 """
@@ -19,10 +24,12 @@ from repro_torch.backends.registry import (Backend, Capabilities, register,
                                            register_alias)
 from repro_torch.core import engine, ref
 from repro_torch.core.result import from_sweep
-from repro_torch.kernels import backward, ops
+from repro_torch.kernels import backward, family, ops
 
 _ALL = frozenset({"sqeuclidean", "abs", "cosine"})
 _FULL = frozenset({"cost", "end", "start", "soft_alignment"})
+_ALL_FAMILIES = frozenset({"sdtw", "twed", "erp", "local"})
+_GLOBAL_WINDOWS = frozenset({"sdtw", "twed", "erp"})
 
 
 def _exec_ref(spec, plan):
@@ -39,7 +46,8 @@ def _exec_engine(spec, plan):
 
 
 def _exec_kernel(spec, plan):
-    if spec.soft:
+    family.refuse_grad(spec, plan.queries, plan.reference)
+    if spec.soft and spec.family == "sdtw":
         return from_sweep(
             backward.sdtw_soft_fused(plan.queries, plan.reference,
                                      spec=spec,
@@ -55,12 +63,16 @@ def _exec_kernel(spec, plan):
 
 register(Backend(
     name="ref",
-    capabilities=Capabilities(distances=_ALL, outputs=_FULL),
+    capabilities=Capabilities(distances=_ALL, outputs=_FULL,
+                              families=_ALL_FAMILIES,
+                              window_families=_GLOBAL_WINDOWS),
     execute=_exec_ref))
 
 register(Backend(
     name="engine",
-    capabilities=Capabilities(distances=_ALL, outputs=_FULL),
+    capabilities=Capabilities(distances=_ALL, outputs=_FULL,
+                              families=_ALL_FAMILIES,
+                              window_families=_GLOBAL_WINDOWS),
     execute=_exec_engine))
 
 # soft == the engine with the reduction forced to soft-min
@@ -71,5 +83,5 @@ register(Backend(
     capabilities=Capabilities(
         # no cosine: the JAX kernel declines it too
         distances=frozenset(ops.wavefront.KERNEL_DISTANCES),
-        outputs=_FULL),
+        outputs=_FULL, families=_ALL_FAMILIES),
     execute=_exec_kernel))

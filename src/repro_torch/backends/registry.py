@@ -28,14 +28,36 @@ class Capabilities:
 
     distances: frozenset
     outputs: frozenset = _BASE_OUTPUTS   # SDTWResult fields it fills
+    families: frozenset = frozenset({"sdtw"})
+    #   recurrence families it executes; a backend opts in, so a family
+    #   request never lands on one that would run sdtw instead
+    window_families: frozenset = frozenset({"sdtw"})
+    #   families it serves the "start" output for (twed / erp starts are
+    #   column 0, or NO_WINDOW when the band blocks the corner)
 
     def unsupported_reason(self, spec: DPSpec, outputs=None) -> str | None:
         """None when the spec (and every requested output) is
         executable, else a short reason."""
+        if spec.family not in self.families:
+            return f"family {spec.family!r}"
         if spec.distance not in self.distances:
             return f"distance {spec.distance!r}"
         if outputs is not None:
             req = normalize_outputs(outputs)
+            # the family reasons first: they hold whatever a backend
+            # declares, so "who can instead" names nobody falsely
+            if "start" in req and spec.family not in self.window_families:
+                return (f"output 'start' for family {spec.family!r} "
+                        f"(window starts ride families "
+                        f"{sorted(self.window_families)} here)")
+            if "path" in req and spec.family != "sdtw":
+                return (f"output 'path' for family {spec.family!r}: the "
+                        "Hirschberg traceback recovers sdtw warping "
+                        "paths only")
+            if "soft_alignment" in req and spec.family != "sdtw":
+                return ("output 'soft_alignment' for family "
+                        f"{spec.family!r}: the soft-alignment backward "
+                        "serves the sdtw recurrence only")
             missing = req - self.outputs
             if missing:
                 return f"output(s) {sorted(missing)}"

@@ -20,9 +20,11 @@ _FIELDS = frozenset(f.name for f in dataclasses.fields(DPSpec))
 
 def spec_from_dict(d: dict) -> DPSpec:
     """The port's :class:`DPSpec` from ``dataclasses.asdict`` of a
-    ``repro.core.spec.DPSpec``, soft-min specs (``gamma``) included.
-    Unknown fields raise ``ValueError``; specs the port does not serve
-    yet (other families, a bf16 accumulator) raise ``NotPortedError``."""
+    ``repro.core.spec.DPSpec``, soft-min specs (``gamma``) and the
+    recurrence families (``family``, ``nu``, ``lam``, ``gap``,
+    ``gap_penalty``, ``match_reward``) included.  Unknown fields raise
+    ``ValueError``; a bf16 accumulator (``accum_dtype``), which the port
+    does not serve yet, raises ``NotPortedError``."""
     unknown = set(d) - _FIELDS
     if unknown:
         raise ValueError(f"unknown DPSpec field(s) {sorted(unknown)}; "

@@ -11,8 +11,9 @@ Counterpart of ``repro.core.api.sdtw``.  The call runs on the CUDA card
 unless ``device="cpu"`` is passed; with no card and no ``device="cpu"``
 it raises instead of running on the CPU.  On the card the registry puts
 the ``kernel`` backend first: both normalizations go through the K2
-kernel and the sweep through the K1/K3/K4 wavefront kernel, or K5 for a
-soft-min spec.  Under soft-min the returned cost is differentiable with
+kernel and the sweep through the K1/K3/K4 wavefront kernel, K5 for a
+soft-min spec, or K7 for a recurrence family (``family="twed"`` /
+``"erp"`` / ``"local"``, hard- or soft-min).  Under soft-min the returned cost is differentiable with
 ``torch.autograd`` with respect to the queries and the reference
 (through K6 and the normalizer's backward on the kernel backend), and
 ``outputs=("soft_alignment",)`` returns the expected alignment E.
@@ -32,9 +33,11 @@ from repro_torch.kernels.backward import soft_alignment_fused
 from repro_torch.kernels.ops import validate_segment_width
 
 
-def check_ported_outputs(req: frozenset) -> None:
-    """Reject the outputs the port does not serve yet."""
-    if "path" in req:
+def check_ported_outputs(req: frozenset, spec: DPSpec) -> None:
+    """Reject the outputs the port does not serve yet.  A family's
+    ``path`` is left to the registry, whose reason holds for good (the
+    traceback recovers sdtw paths only)."""
+    if "path" in req and spec.family == "sdtw":
         raise not_ported("output 'path'", "slice 3")
 
 
@@ -82,6 +85,11 @@ def sdtw(queries, reference, *,
          gamma: float | None = None,
          band: int | None = None,
          family: str | None = None,
+         nu: float | None = None,
+         lam: float | None = None,
+         gap: float | None = None,
+         gap_penalty: float | None = None,
+         match_reward: float | None = None,
          segment_width: int = 8,
          device=None) -> SDTWResult:
     """Align a batch of queries against one reference.
@@ -91,7 +99,9 @@ def sdtw(queries, reference, *,
     ``cost`` (B,) float32, ``end`` (B,) int32, ``start`` (B,) int32
     (hard-min), ``soft_alignment`` (B, M, N) float32 (soft-min).
     ``spec`` carries the recurrence; ``distance`` / ``reduction`` /
-    ``gamma`` / ``band`` / ``family`` override its fields.
+    ``gamma`` / ``band`` / ``family`` and the family parameters ``nu`` /
+    ``lam`` (twed), ``gap`` (erp), ``gap_penalty`` / ``match_reward``
+    (local) override its fields.
     ``backend=None`` picks the first capable backend for the device;
     ``backend="soft"`` is the engine under soft-min.
     ``segment_width`` is the kernel's reference cells per lane, one of
@@ -100,9 +110,11 @@ def sdtw(queries, reference, *,
     dev = resolve_device(device)
     width = check_width(segment_width)
     resolved = resolve_spec(spec, distance=distance, reduction=reduction,
-                            gamma=gamma, band=band, family=family)
+                            gamma=gamma, band=band, family=family, nu=nu,
+                            lam=lam, gap=gap, gap_penalty=gap_penalty,
+                            match_reward=match_reward)
     req = normalize_outputs(outputs)
-    check_ported_outputs(req)
+    check_ported_outputs(req, resolved)
     q = as_f32(queries, dev)
     r = as_f32(reference, dev)
     validate_batch_inputs(q, r)

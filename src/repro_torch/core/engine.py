@@ -18,6 +18,13 @@ running-max logsumexp of ``-D[M-1, j] / gamma`` beside the hard
 the masks write in place only into a freshly computed diagonal, which
 no backward function has saved.
 
+The non-sdtw families (twed / erp / local) take the same sweep with
+every cell through ``DPSpec.family_cell`` (:func:`_dp_engine`): K7's
+plain version.  ``compute_dtype=torch.bfloat16`` runs the hard-min sdtw
+sweep with bf16 cells and carries (every operation computed in float32
+and rounded to bf16, as torch's bf16 ops are) and a float32 fold: the
+plain version of bf16-K1.
+
 Complexity: (M + N - 1) steps of O(B·M) work.
 """
 
@@ -25,8 +32,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.ref import J_MAX
 from repro_torch.core.spec import (DEFAULT_SPEC, INF, NO_WINDOW, SOFT_BIG,
-                                   DPSpec)
+                                   DPSpec, previous_samples)
 
 
 def _valid_rows(t: int, m: int, n: int, band: int | None):
@@ -54,7 +62,9 @@ def _mask_outside(x: torch.Tensor, lo: int, hi: int, value) -> None:
 
 def sdtw_engine(queries: torch.Tensor, reference: torch.Tensor, *,
                 spec: DPSpec | None = None, return_window: bool = False,
-                n_valid: int | None = None, return_bottom: bool = False):
+                n_valid: int | None = None, return_bottom: bool = False,
+                extras: tuple | None = None,
+                compute_dtype: torch.dtype = torch.float32):
     """Batched anti-diagonal sDTW under ``spec``.
 
     queries:   (B, M) float32
@@ -65,6 +75,12 @@ def sdtw_engine(queries: torch.Tensor, reference: torch.Tensor, *,
                plain wavefront sweeps a zero-padded layout and folds
                the true columns only); default N
     return_bottom: also return the (B, n_valid) bottom row D[M-1, :]
+    extras:    a family's operands as ``kernels.ops.family_extras``
+               lays them out (twed ``(r_prev,)``, erp ``(bt, bl)``);
+               default: computed here from ``reference`` and ``queries``
+    compute_dtype: the hard-min sdtw sweep's cells and carries:
+               float32, or bfloat16 (bf16-K1's plain version; the plan
+               rules are ``kernels.wavefront.check_plan``'s)
     returns:   (costs (B,), ends (B,) int32), or (costs, starts, ends),
                with the bottom row appended when ``return_bottom``
     """
@@ -72,8 +88,15 @@ def sdtw_engine(queries: torch.Tensor, reference: torch.Tensor, *,
     if return_window and spec.soft:
         raise ValueError("return_window needs a hard-min spec: soft-min "
                          "has no argmin path")
-    q = queries.to(torch.float32)
-    r = reference.to(torch.float32)
+    if spec.family != "sdtw":
+        if return_bottom:
+            raise ValueError("return_bottom is an sdtw bottom-row output")
+        return _dp_engine(queries.to(torch.float32),
+                          reference.to(torch.float32), spec=spec,
+                          return_window=return_window, n_valid=n_valid,
+                          extras=extras)
+    q = queries.to(compute_dtype)
+    r = reference.to(compute_dtype)
     B, M = q.shape
     N = r.shape[0]
     nv = N if n_valid is None else n_valid
@@ -84,7 +107,7 @@ def sdtw_engine(queries: torch.Tensor, reference: torch.Tensor, *,
     row0 = (torch.arange(M, device=dev) == 0)
 
     big = spec.big
-    d1 = torch.full((B, M), big, dtype=torch.float32, device=dev)
+    d1 = torch.full((B, M), big, dtype=compute_dtype, device=dev)
     d2 = d1.clone()
     best = torch.full((B,), big, dtype=torch.float32, device=dev)
     best_j = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -117,7 +140,7 @@ def sdtw_engine(queries: torch.Tensor, reference: torch.Tensor, *,
         # band masks weighs exp(-big / gamma) = 0) so that the cost stays
         # on the autograd graph even when the band blocks them all
         if 0 <= j_bottom < nv and (spec.soft or lo <= M - 1 <= hi):
-            cand = d0[:, M - 1]
+            cand = d0[:, M - 1].float()
             take = cand < best            # strict: earliest column wins
             best = torch.where(take, cand, best)
             best_j = torch.where(take, j_bottom, best_j)
@@ -145,3 +168,110 @@ def sdtw_engine(queries: torch.Tensor, reference: torch.Tensor, *,
                            -spec.gamma * (m_run + torch.log(s_run)))
     out = (best, best_s, best_j) if return_window else (best, best_j)
     return out + (bottom,) if return_bottom else out
+
+
+def _dp_engine(q: torch.Tensor, r: torch.Tensor, *, spec: DPSpec,
+               return_window: bool, n_valid: int | None, extras):
+    """Anti-diagonal sweep of the non-sdtw families (the counterpart of
+    ``repro.core.engine._dp_engine``) and K7's plain version: the same
+    rotating diagonals as :func:`sdtw_engine`, every cell through
+    ``spec.family_cell``, and the family's fold over the true columns
+    ``j < n_valid`` only (the kernel's zero-padded layout computes pad
+    columns and never folds them):
+
+    * corner (twed / erp): ``D[M-1, n_valid-1]``; a masked or unreached
+      corner gives ``(inf, 0)``;
+    * cells (local): the lexicographic ``(value, column)`` minimum over
+      every valid cell below ``big / 2``, and under soft-min a running
+      logsumexp of ``-D / gamma`` beside it.
+    """
+    fam = spec.family
+    local = fam == "local"
+    if return_window and local:
+        raise ValueError(
+            "return_window is undefined for the local family: a local "
+            "alignment's span needs a full backtrack, not a start lane")
+    B, M = q.shape
+    N = r.shape[0]
+    nv = N if n_valid is None else n_valid
+    dev = q.device
+    big = spec.big
+    if extras is None:
+        if fam == "twed":
+            extras = (previous_samples(r),)
+        elif fam == "erp":
+            extras = (spec.gap_prefix(r), spec.gap_prefix(q))
+        else:
+            extras = ()
+
+    def ext(x):
+        """Reversed + padded: diagonal t reads one contiguous slice."""
+        return torch.nn.functional.pad(torch.flip(x, (0,)), (M - 1, M - 1))
+
+    r_ext = ext(r)
+    rp_ext = bt_ext = q_prev = bl = None
+    if fam == "twed":
+        rp_ext = ext(extras[0][:N])
+        q_prev = previous_samples(q)
+    elif fam == "erp":
+        bt_ext, bl = ext(extras[0][:N]), extras[1]
+    ii = torch.arange(M, device=dev)
+    row0 = ii == 0
+    d1 = torch.full((B, M), big, dtype=torch.float32, device=dev)
+    d2 = d1
+    best = torch.full((B,), big, dtype=torch.float32, device=dev)
+    best_j = torch.full((B,), J_MAX if local else 0, dtype=torch.int64,
+                        device=dev)
+    m_run = torch.full((B,), -INF, dtype=torch.float32, device=dev)
+    s_run = torch.zeros((B,), dtype=torch.float32, device=dev)
+    corner_t = (M - 1) + (nv - 1)
+    for t in range(M + N - 1):
+        lo, hi = _valid_rows(t, M, N, spec.band)
+        start = N - 1 - t + (M - 1)
+        j = t - ii
+        d0 = spec.family_cell(
+            q, r_ext[start:start + M], d1, torch.roll(d1, 1, -1),
+            torch.roll(d2, 1, -1), i=ii, j=j, is_row0=row0,
+            is_col0=j == 0, q_prev=q_prev,
+            r_prev=None if rp_ext is None else rp_ext[start:start + M],
+            top_boundary=None if bt_ext is None
+            else bt_ext[start:start + M], left_boundary=bl)
+        _mask_outside(d0, lo, hi, big)
+        if local:
+            # fold the true columns only; diagonals ascend in t, so an
+            # equal (value, column) keeps the first-seen row
+            lo_f, hi_f = max(lo, t - nv + 1), hi
+            if lo_f <= hi_f:
+                cells = d0[:, lo_f:hi_f + 1]
+                cols = j[lo_f:hi_f + 1]
+                v = cells.min(dim=1).values
+                jm = torch.where(cells == v[:, None], cols,
+                                 J_MAX).min(dim=1).values
+                take = ((v < best) | ((v == best) & (jm < best_j))) \
+                    & (v < big / 2)
+                best = torch.where(take, v, best)
+                best_j = torch.where(take, jm, best_j)
+                if spec.soft:
+                    x = -cells / spec.gamma     # masked cells weigh 0
+                    m_new = torch.maximum(m_run, x.max(dim=1).values)
+                    s_run = s_run * torch.exp(m_run - m_new) \
+                        + torch.exp(x - m_new[:, None]).sum(dim=1)
+                    m_run = m_new
+        elif t == corner_t:
+            cand = d0[:, M - 1]
+            take = cand < best          # a masked corner never takes
+            best = torch.where(take, cand, best)
+            best_j = torch.where(take, nv - 1, best_j)
+        d2, d1 = d1, d0
+    if local:
+        cost = (-spec.gamma * (m_run + torch.log(s_run)) if spec.soft
+                else best)
+    else:
+        blocked = best >= big / 2
+        cost = torch.where(blocked, INF, best)
+        best_j = torch.where(blocked, 0, best_j)
+    end = best_j.to(torch.int32)
+    if return_window:
+        start = torch.where(torch.isinf(cost), NO_WINDOW, 0).to(torch.int32)
+        return cost, start, end
+    return cost, end

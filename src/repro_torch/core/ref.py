@@ -22,7 +22,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.spec import (DEFAULT_SPEC, INF, NO_WINDOW, SOFT_BIG,
-                                   DPSpec)
+                                   DPSpec, previous_samples)
+
+J_MAX = 2 ** 31 - 1
+#   The local fold's "no column yet" sentinel: any real column beats it.
 
 
 def _np_cost(spec: DPSpec, a: float, b: float) -> float:
@@ -90,6 +93,10 @@ def sdtw_ref(queries: torch.Tensor, reference: torch.Tensor,
     if return_window and spec.soft:
         raise ValueError("return_window needs a hard-min spec: soft-min "
                          "has no argmin path")
+    if spec.family != "sdtw":
+        return _dp_rowscan(queries.to(torch.float32),
+                           reference.to(torch.float32), spec,
+                           return_window)
     q = queries.to(torch.float32)
     r = reference.to(torch.float32)
     B, M = q.shape
@@ -135,3 +142,86 @@ def sdtw_ref(queries: torch.Tensor, reference: torch.Tensor,
         start = starts.gather(1, end[:, None])[:, 0]
         return cost, start, end.to(torch.int32)
     return cost, end.to(torch.int32)
+
+
+def _dp_rowscan(q: torch.Tensor, r: torch.Tensor, spec: DPSpec,
+                return_window: bool):
+    """Row-by-row scan of the non-sdtw families (twed / erp / local),
+    batched over the queries: the counterpart of
+    ``repro.core.ref._dp_rowscan_single``.  Every cell goes through
+    ``spec.family_cell``; the fold follows ``spec.recurrence.fold``:
+
+    * ``corner`` (twed / erp): ``D[m-1, n-1]``; a band that disconnects
+      the corner gives ``(inf, 0)`` (and start ``NO_WINDOW``);
+    * ``cells`` (local): the lexicographic ``(value, column)`` minimum
+      over every valid cell (hard), or the logsumexp over them with the
+      hard minimizer's column as the end (soft).
+    """
+    fam = spec.family
+    local = fam == "local"
+    if return_window and local:
+        raise ValueError(
+            "return_window is undefined for the local family: a local "
+            "alignment's span needs a full backtrack, not a start lane")
+    B, M = q.shape
+    N = r.shape[0]
+    dev = q.device
+    big = spec.big
+    jj = torch.arange(N, device=dev)
+    zero_r, zero_q = torch.zeros_like(r), torch.zeros_like(q)
+    r_prev, q_prev, bt, bl = zero_r, zero_q, zero_r, zero_q
+    if fam == "twed":
+        r_prev, q_prev = previous_samples(r), previous_samples(q)
+    elif fam == "erp":
+        bt, bl = spec.gap_prefix(r), spec.gap_prefix(q)
+    ok = spec.band_valid(torch.arange(M, device=dev)[:, None], jj[None])
+    row = torch.full((B, N), big, dtype=torch.float32, device=dev)
+    best = torch.full((B,), big, dtype=torch.float32, device=dev)
+    best_j = torch.full((B,), J_MAX, dtype=torch.int64, device=dev)
+    mx = torch.full((B,), -INF, dtype=torch.float32, device=dev)
+    s = torch.zeros((B,), dtype=torch.float32, device=dev)
+    big_b = torch.full((B,), big, dtype=torch.float32, device=dev)
+    for i in range(M):
+        new_row = torch.empty_like(row)
+        left, upleft = big_b, big_b
+        ti = torch.tensor(i, device=dev)
+        for j in range(N):
+            up = row[:, j]
+            if ok is not None and not bool(ok[i, j]):
+                val = big_b
+            else:
+                tj = torch.tensor(j, device=dev)
+                val = spec.family_cell(
+                    q[:, i], r[j], left, up, upleft, i=ti, j=tj,
+                    is_row0=ti == 0, is_col0=tj == 0, q_prev=q_prev[:, i],
+                    r_prev=r_prev[j], top_boundary=bt[j],
+                    left_boundary=bl[:, i])
+            new_row[:, j] = val
+            left, upleft = val, up
+        row = new_row
+        if local:
+            # rows ascend, so an equal (value, column) keeps the first row
+            v = row.min(dim=1).values
+            jm = torch.where(row == v[:, None], jj, J_MAX).min(dim=1).values
+            take = (v < best) | ((v == best) & (jm < best_j))
+            best = torch.where(take, v, best)
+            best_j = torch.where(take, jm, best_j)
+            if spec.soft:
+                x = -row / spec.gamma       # masked cells weigh 0
+                m_new = torch.maximum(mx, x.max(dim=1).values)
+                s = s * torch.exp(mx - m_new) \
+                    + torch.exp(x - m_new[:, None]).sum(dim=1)
+                mx = m_new
+    if local:
+        end = best_j.to(torch.int32)
+        if spec.soft:
+            return -spec.gamma * (mx + torch.log(s)), end
+        return best, end
+    corner = row[:, N - 1]
+    blocked = corner >= big / 2 if spec.soft else torch.isinf(corner)
+    cost = torch.where(blocked, INF, corner)
+    end = torch.where(blocked, 0, N - 1).to(torch.int32)
+    if return_window:
+        start = torch.where(blocked, NO_WINDOW, 0).to(torch.int32)
+        return cost, start, end
+    return cost, end

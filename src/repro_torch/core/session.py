@@ -10,9 +10,11 @@ query batches against it::
 Counterpart of ``repro.core.session.Aligner``.  The reference is
 normalized once at construction (one K2 launch on the card); the
 kernel's reference layouts (forward, and reverse for the soft-DTW
-backward) are built once per segment width and cached; each call
-normalizes its queries (one K2 launch) and runs one sweep (one wavefront
-launch: K1/K3/K4, or K5 under soft-min).  A soft-min call that autograd
+backward) and a family's reference-derived operands (twed's shifted
+reference, erp's gap prefix) are built once per segment width and
+cached; each call normalizes its queries (one K2 launch) and runs one
+sweep (one wavefront launch: K1/K3/K4, K5 under soft-min, K7 for a
+recurrence family, given ``spec=DPSpec(family=...)``).  A soft-min call that autograd
 must differentiate, or that asks for ``soft_alignment`` (over the
 cached layouts), runs the K6 pair instead.  PyTorch runs eagerly, so
 there is no executable cache: :class:`AlignerStats` counts calls and
@@ -81,7 +83,7 @@ class Aligner:
                                  band=band)
         hint = None if outputs is None else normalize_outputs(outputs)
         if hint is not None:
-            check_ported_outputs(hint)
+            check_ported_outputs(hint, self.spec)
         if backend is None:
             self.backend = registry.select(self.spec, outputs=hint,
                                            device=self.device)
@@ -110,10 +112,21 @@ class Aligner:
             self.stats.layout_builds += 1
         return lay
 
+    def family_extras(self, segment_width: int | None = None) -> tuple:
+        """The family's reference-derived kernel operands for one width
+        (``ops.family_extras_ref``), computed at most once per session."""
+        w = self.segment_width if segment_width is None else \
+            check_width(segment_width)
+        ex = self._layouts.get((w, "family"))
+        if ex is None:
+            ex = self._layouts[(w, "family")] = ops.family_extras_ref(
+                self.spec, self.reference.detach(), segment_width=w)
+        return ex
+
     def align(self, queries, *, outputs=DEFAULT_OUTPUTS) -> SDTWResult:
         """Align one query batch (B, M) against the session's reference."""
         req = normalize_outputs(outputs)
-        check_ported_outputs(req)
+        check_ported_outputs(req, self.spec)
         registry.resolve(self.backend.name, self.spec, outputs=req,
                          device=self.device)
         q = as_f32(queries, self.device)
@@ -131,10 +144,15 @@ class Aligner:
                            self.segment_width,
                            layouts=(self.layout(), self.layout(reverse=True)))
         sweep = sweep_outputs(req)
+        extras = ()
+        if self.spec.family != "sdtw":
+            extras = self.family_extras() + ops.family_extras_query(
+                self.spec, q)
         return from_sweep(ops.sdtw_wavefront_prepped(
             q, self.layout(), n=self.length,
             segment_width=self.segment_width, spec=self.spec,
-            return_window="start" in sweep), sweep).restrict(req)
+            return_window="start" in sweep, extras=extras),
+            sweep).restrict(req)
 
     __call__ = align
 

@@ -1,0 +1,162 @@
+"""Full-matrix numpy oracles for the port's recurrence families — the
+port's own copy of ``repro.dp.oracle`` (it imports nothing of ``repro``).
+
+Trusted O(M*N)-memory baselines for every family the executors serve
+(sdtw / twed / erp / local), mirroring :meth:`DPSpec.family_cell`
+TERM-FOR-TERM: the same boundary injections, the same transition-cost
+operand order, the same ``B[j-1] = B[j] - d(r_j, g)`` prefix-peeling
+form for ERP (NOT a re-read of the true prefix — f32 executors round
+that subtraction, and the oracle must agree on which value the
+recurrence defines).  The sdtw family delegates to the port's
+:func:`repro_torch.core.ref.sdtw_numpy`.
+
+All arithmetic runs in ``dtype`` (float64 default) so the oracle is a
+higher-precision referee for the f32 sweeps; masked/blocked cells hold
+``spec.big`` exactly like the engine's masked diagonals.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.ref import sdtw_numpy
+from repro_torch.core.spec import DPSpec, NO_WINDOW, SOFT_BIG
+
+
+def _cost(spec: DPSpec, a, b):
+    if spec.distance == "sqeuclidean":
+        return (a - b) ** 2
+    if spec.distance == "abs":
+        return abs(a - b)
+    return 1.0 - (a * b) / (abs(a) * abs(b) + 1e-8)
+
+
+def _reduce3(spec: DPSpec, left, up, upleft):
+    mn = min(left, up, upleft)
+    if not spec.soft:
+        return mn
+    g = spec.gamma
+    s = (np.exp(-(left - mn) / g) + np.exp(-(up - mn) / g)
+         + np.exp(-(upleft - mn) / g))
+    return mn - g * np.log(s)
+
+
+def _reduce2(spec: DPSpec, a, b):
+    mn = min(a, b)
+    if not spec.soft:
+        return mn
+    g = spec.gamma
+    s = np.exp(-(a - mn) / g) + np.exp(-(b - mn) / g)
+    return mn - g * np.log(s)
+
+
+def dp_matrix(q: np.ndarray, r: np.ndarray, spec: DPSpec,
+              dtype=np.float64) -> np.ndarray:
+    """The (m, n) inner-cell grid of a non-sdtw family recurrence.
+
+    Cell (i, j) holds D[i, j] of the family's recurrence (min-space for
+    every objective — local-alignment cells are negated similarities);
+    out-of-band cells hold ``spec.big``, exactly the value their in-band
+    neighbours read through the executors' masks.
+    """
+    fam = spec.family
+    if fam == "sdtw":
+        raise ValueError("dp_matrix serves the non-sdtw families; the "
+                         "sdtw oracle is repro_torch.core.ref.sdtw_numpy")
+    q = np.asarray(q, dtype=dtype)
+    r = np.asarray(r, dtype=dtype)
+    m, n = len(q), len(r)
+    big = dtype(spec.big)
+    D = np.full((m, n), big, dtype=dtype)
+    if fam == "erp":
+        # gap-cost prefixes: B_t(j) = sum_{k<=j} d(r_k, g), sequentially
+        # accumulated like jnp.cumsum over the same values
+        bt = np.cumsum([_cost(spec, rv, spec.gap) for rv in r]).astype(dtype)
+        bl = np.cumsum([_cost(spec, qv, spec.gap) for qv in q]).astype(dtype)
+    for i in range(m):
+        for j in range(n):
+            if spec.band is not None and abs(i - j) > spec.band:
+                continue                       # out of band: stays big
+            qv, rv = q[i], r[j]
+            left = D[i, j - 1] if j > 0 else big
+            up = D[i - 1, j] if i > 0 else big
+            upleft = D[i - 1, j - 1] if (i > 0 and j > 0) else big
+            if fam == "twed":
+                q_prev = q[i - 1] if i > 0 else dtype(0.0)
+                r_prev = r[j - 1] if j > 0 else dtype(0.0)
+                nl = spec.nu + spec.lam
+                t_left = _cost(spec, rv, r_prev) + nl
+                t_up = _cost(spec, qv, q_prev) + nl
+                t_diag = (_cost(spec, qv, rv) + _cost(spec, q_prev, r_prev)
+                          + (2.0 * spec.nu) * abs(i - j))
+                if i == 0:
+                    up = big
+                    upleft = dtype(0.0) if j == 0 else big
+                if j == 0:
+                    left = big
+                    if i > 0:
+                        upleft = big
+            elif fam == "erp":
+                t_left = _cost(spec, rv, spec.gap)
+                t_up = _cost(spec, qv, spec.gap)
+                t_diag = _cost(spec, qv, rv)
+                # prefix peeling, in exactly the executors' f32 form
+                if i == 0:
+                    up = bt[j]
+                    upleft = bt[j] - _cost(spec, rv, spec.gap)
+                elif j == 0:
+                    upleft = bl[i] - _cost(spec, qv, spec.gap)
+                if j == 0:
+                    left = bl[i]
+            else:                              # local (min-space SW)
+                t_left = t_up = spec.gap_penalty
+                t_diag = _cost(spec, qv, rv) - spec.match_reward
+                if i == 0:
+                    up = dtype(0.0)
+                    upleft = dtype(0.0)
+                if j == 0:
+                    left = dtype(0.0)
+                    upleft = dtype(0.0)
+            val = _reduce3(spec, left + t_left, up + t_up, upleft + t_diag)
+            if fam == "local":
+                val = _reduce2(spec, val, dtype(0.0))
+            D[i, j] = val
+    return D
+
+
+def dp_oracle(q: np.ndarray, r: np.ndarray,
+              spec: DPSpec) -> tuple[float, int]:
+    """Brute-force family score. Returns ``(cost, end_index)`` with the
+    executors' fold semantics:
+
+    * sdtw — free-end bottom-row reduction (delegates to
+      :func:`repro_torch.core.ref.sdtw_numpy`);
+    * twed / erp — the global corner cell ``D[m-1, n-1]``; a band that
+      disconnects the corner yields ``(inf, 0)``;
+    * local — the lexicographic ``(value, column)`` minimum over every
+      valid cell (hard), or the soft-min over all valid cells with the
+      hard minimizer's column as the end index (soft).
+    """
+    if spec.family == "sdtw":
+        return sdtw_numpy(q, r, spec)
+    D = dp_matrix(q, r, spec)
+    m, n = D.shape
+    big = spec.big
+    if spec.family in ("twed", "erp"):
+        corner = D[m - 1, n - 1]
+        blocked = (corner >= big / 2) if spec.soft else np.isinf(corner)
+        if blocked:
+            return np.inf, 0
+        return float(corner), n - 1
+    # local: fold every valid cell
+    best = float(D.min())
+    end = int(np.flatnonzero(np.any(D == best, axis=0)).min())
+    if spec.soft:
+        a = (-D / spec.gamma).ravel()
+        mx = np.max(a)
+        cost = float(-spec.gamma * (mx + np.log(np.sum(np.exp(a - mx)))))
+        return cost, end
+    return best, end
+
+
+__all__ = ["dp_matrix", "dp_oracle", "NO_WINDOW", "SOFT_BIG"]

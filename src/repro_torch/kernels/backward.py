@@ -46,15 +46,6 @@ TILE_FRACTION = 16
 #   elements.
 
 
-def _validate_soft(spec: DPSpec, who: str) -> None:
-    if not spec.soft:
-        raise ValueError(f"{who} needs a softmin spec "
-                         f"(reduction='softmin'), got {spec.describe()}")
-    if spec.distance not in wavefront.KERNEL_DISTANCES:
-        raise ValueError(f"{who} computes {wavefront.KERNEL_DISTANCES}, "
-                         f"not {spec.distance!r}: use the engine backend")
-
-
 # ------------------------------------------------------------- sweeps
 def reference_layouts(reference: torch.Tensor, segment_width: int):
     """(forward, reverse) kernel layouts of a normalized reference."""
@@ -164,7 +155,7 @@ def soft_alignment_fused(queries: torch.Tensor, reference: torch.Tensor, *,
     pass.  E itself is the requested B·M·N output; everything upstream
     of it stays tiled.  Inputs are not normalized here; ``layouts`` as
     in :func:`checkpoint_sweeps`."""
-    _validate_soft(spec, "soft_alignment_fused")
+    wavefront.check_plan(spec, kernel="soft")
     q = queries.to(torch.float32).contiguous()
     r = reference.to(torch.float32).contiguous()
     B, m = q.shape
@@ -237,7 +228,7 @@ def sdtw_soft_fused(queries: torch.Tensor, reference: torch.Tensor, *,
     not normalized here; ``layouts`` as in :func:`checkpoint_sweeps`.  Without autograd (grad disabled, or no input
     that requires grad) this is one plain K5 launch; with it, the K6
     pair runs and the tile pass folds the gradients."""
-    _validate_soft(spec, "sdtw_soft_fused")
+    wavefront.check_plan(spec, kernel="soft")
     q = queries.to(torch.float32).contiguous()
     r = reference.to(torch.float32).contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or r.requires_grad):

@@ -3,7 +3,9 @@
 Each library is one ``csrc/*.cu`` source compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds, not minutes); ``wavefront.cu`` gives
-two, its hard-min half and, under ``-DREPRO_SOFT``, its soft-min half.
+three, its hard-min half, the same under ``-DREPRO_BF16`` (bf16-K1) and,
+under ``-DREPRO_SOFT``, its soft-min half; ``family_wavefront.cu`` (K7)
+gives two, hard-min and ``-DREPRO_SOFT``.
 Every library is compiled by its own ``nvcc`` process, all started
 together.  Libraries go to
 ``build/repro_torch/`` at the repository root, named by a hash of the
@@ -29,11 +31,17 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
           "-Xptxas", "-v", "-lineinfo"]
 # library name -> (source, extra flags).  -fmad=false: the hard-min
-# wavefront must round (q - r) * (q - r) + min(...) exactly as the plain
-# version does (no fused multiply-add); the soft-min sweeps are held to a
-# tolerance and keep the default contraction.
+# wavefronts (K1/K3/K4, bf16-K1, K7) must round (q - r) * (q - r) +
+# min(...) exactly as the plain version does (no fused multiply-add); the
+# soft-min sweeps are held to a tolerance and keep the default
+# contraction.
 TARGETS = {"wavefront": ("wavefront.cu", ["-fmad=false"]),
+           "wavefront_bf16": ("wavefront.cu",
+                              ["-fmad=false", "-DREPRO_BF16"]),
            "soft_wavefront": ("wavefront.cu", ["-DREPRO_SOFT"]),
+           "family_wavefront": ("family_wavefront.cu", ["-fmad=false"]),
+           "soft_family_wavefront": ("family_wavefront.cu",
+                                     ["-DREPRO_SOFT"]),
            "normalizer": ("normalizer.cu", [])}
 
 _lock = threading.Lock()

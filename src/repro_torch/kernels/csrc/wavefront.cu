@@ -9,7 +9,10 @@
 //   * soft-min (this file built with -DREPRO_SOFT as libsoft_wavefront,
 //     see the second half): SoftMinFold (K5), its checkpoint=True
 //     boundary strips and its reverse=True sweep (K6).
-// The two halves are compiled by two nvcc processes side by side.
+//   * bf16-K1 (the hard-min half built with -DREPRO_BF16 as
+//     libwavefront_bf16): K1/K3/K4 under compute_dtype=bfloat16
+//     (CarryChannel.reg_dtype, :132-134), see bf16() below.
+// The three libraries are compiled by three nvcc processes side by side.
 //
 // The hard-min kernel.  What bounds it on an H100: operations.  Every one of the B*M*N cells
 // costs a subtract, a multiply (or an abs), two mins and an add, all in a
@@ -59,10 +62,29 @@ constexpr unsigned kFull = 0xffffffffu;
 
 #ifndef REPRO_SOFT
 
+#ifdef REPRO_BF16
+#include <cuda_bf16.h>
+#endif
+
 namespace {
 
 constexpr float kBig = 3.0e38f;   // KERNEL_BIG of repro/core/spec.py
 constexpr int kNoWindow = -1;     // NO_WINDOW
+
+// The compute type.  Under -DREPRO_BF16 every operand and every cell
+// operation's float32 result is rounded to bf16 (round to nearest even),
+// which is what torch's bf16 ops do (compute in float32, round), so the
+// cells, the carries and the strip hold bf16 values and equal the plain
+// version (the engine in bf16) bit for bit; they stay in 32-bit
+// registers, and the fold compares them as float32, as the JAX plan's
+// MinArgminFold does.  The float32 build's bf16() is the identity.
+__device__ __forceinline__ float bf16(float x) {
+#ifdef REPRO_BF16
+  return __bfloat162float(__float2bfloat16_rn(x));
+#else
+  return x;
+#endif
+}
 
 template <int W, bool WINDOW, bool BAND, bool ABS>
 __global__ void __launch_bounds__(32)
@@ -85,7 +107,7 @@ wavefront_kernel(const float* __restrict__ q, const float* __restrict__ r,
     float rv[W];
 #pragma unroll
     for (int k = 0; k < W; ++k) {
-      rv[k] = r[j0 + k];
+      rv[k] = bf16(r[j0 + k]);
       prev[k] = kBig;
       sprev[k] = kNoWindow;
     }
@@ -103,14 +125,14 @@ wavefront_kernel(const float* __restrict__ q, const float* __restrict__ r,
 
     for (int t = 0; t < m + 31; ++t) {
       const int i = t - lane;
-      const float qv = qb[min(max(i, 0), m - 1)];
+      const float qv = bf16(qb[min(max(i, 0), m - 1)]);
       float lft = left, ul = upleft;
       int slft = sleft, sul = supleft;
 #pragma unroll
       for (int k = 0; k < W; ++k) {
         const int j = j0 + k;
-        const float d = __fsub_rn(qv, rv[k]);
-        const float cst = ABS ? fabsf(d) : __fmul_rn(d, d);
+        const float d = bf16(__fsub_rn(qv, rv[k]));
+        const float cst = ABS ? fabsf(d) : bf16(__fmul_rn(d, d));
         const float up = prev[k];
         float val;
         int s = 0;
@@ -118,7 +140,7 @@ wavefront_kernel(const float* __restrict__ q, const float* __restrict__ r,
           val = cst;                          // free start: D[-1, j] = 0
           if (WINDOW) s = j;
         } else {
-          val = __fadd_rn(cst, fminf(fminf(lft, up), ul));
+          val = bf16(__fadd_rn(cst, fminf(fminf(lft, up), ul)));
           if (WINDOW) {
             s = (up < lft) ? sprev[k] : slft;
             s = (ul < fminf(lft, up)) ? sul : s;

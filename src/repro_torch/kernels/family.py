@@ -1,0 +1,141 @@
+"""The recurrence-family wavefront K7 (``csrc/family_wavefront.cu``), its
+plain PyTorch version, its launch counter and its operands' shaped
+errors (the plan's are ``wavefront.check_plan``'s).
+
+Replaces ``repro/kernels/wavefront.py::wavefront_call`` under the
+family plans: ``KernelPlan.cell`` through ``DPSpec.family_cell``
+(``:670-681``), the extra operands (``:95-99``, ``:797-831``) and the
+folds ``CornerFold`` (twed, erp; ``:304``), ``LocalCellsFold`` (local,
+``:341``) and ``SoftCellsFold`` (soft local, ``:389``).
+
+The geometry is the sdtw wavefront's (:mod:`repro_torch.kernels.
+wavefront`): one warp per query over the zero-padded reference layout,
+``32 * w`` columns a chunk.  The family operands come from
+:func:`repro_torch.kernels.ops.family_extras`: twed ``(r_prev,)`` and
+erp ``(bt, bl)``, ``r_prev``/``bt`` zero-padded to the layout's length
+and ``bl`` (B, M); local takes none.  Pad columns (``j >= n``) are
+computed and never folded: the corner is column ``n - 1``, and the local
+folds skip them (a zero pad column can score better than real ones).
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.engine import sdtw_engine
+from repro_torch.core.spec import DPSpec
+from repro_torch.kernels import build, wavefront
+
+FAMILY_CODES = {"twed": 0, "erp": 1, "local": 2}
+EXTRA_INPUTS = {"twed": ("r_prev",), "erp": ("bt", "bl"), "local": ()}
+counter = build.LaunchCounter("family_wavefront")
+
+
+def variant(spec: DPSpec) -> str:
+    """The fold a launch runs: K7-corner (twed, erp), K7-cells (local),
+    and their soft-min forms."""
+    fold = "corner" if spec.recurrence.fold == "corner" else "cells"
+    return f"K7-soft-{fold}" if spec.soft else f"K7-{fold}"
+
+
+def refuse_grad(spec: DPSpec, *tensors) -> None:
+    """K7 has no backward kernel: a soft family whose operands need a
+    gradient raises instead of returning a cost with no graph."""
+    if spec.family != "sdtw" and spec.soft and torch.is_grad_enabled() \
+            and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"family {spec.family!r} under soft-min has no backward "
+            "kernel on the kernel backend: use backend='engine', whose "
+            "autograd covers the families")
+
+
+def validate(q: torch.Tensor, r_layout: torch.Tensor, extras: tuple, *,
+             n: int, w: int, spec: DPSpec) -> None:
+    """Shaped errors for plans and operands K7 does not take."""
+    wavefront.check_plan(spec, kernel="family")
+    wavefront.validate(q, r_layout, n=n, w=w, with_window=False)
+    names = EXTRA_INPUTS[spec.family]
+    if len(extras) != len(names):
+        raise ValueError(
+            f"family {spec.family!r} takes extra operands {names} (got "
+            f"{len(extras)}): build them with ops.family_extras")
+    for name, x in zip(names, extras):
+        want = tuple(q.shape) if name == "bl" else tuple(r_layout.shape)
+        if tuple(x.shape) != want or x.dtype != torch.float32 \
+                or not x.is_contiguous() or x.device != q.device:
+            raise ValueError(
+                f"family operand {name!r} {x.dtype} {tuple(x.shape)} on "
+                f"{x.device}: want a contiguous float32 tensor of shape "
+                f"{want} on {q.device}, from ops.family_extras")
+
+
+def visited_chunks(m: int, r_layout: torch.Tensor, w: int,
+                   spec: DPSpec) -> int:
+    """Band-skip: the chunks holding a column <= (m - 1) + band.  A
+    global family's corner column n - 1 lies among them whenever the
+    band does not block it (``n - 1 <= m - 1 + band``)."""
+    return wavefront.band_grid_chunks(
+        m, spec.band, r_layout.shape[0] // wavefront.chunk_cols(w), w)
+
+
+def family_plain(q: torch.Tensor, r_layout: torch.Tensor, extras: tuple, *,
+                 n: int, w: int, spec: DPSpec):
+    """The plain version: the engine's family sweep over the same visited
+    columns of the same layout, with the same extra operands, folding
+    ``j < n`` only."""
+    cols = visited_chunks(q.shape[1], r_layout, w, spec) \
+        * wavefront.chunk_cols(w)
+    ex = tuple(x if name == "bl" else x[:cols] for name, x in
+               zip(EXTRA_INPUTS[spec.family], extras))
+    return sdtw_engine(q, r_layout[:cols], spec=spec, n_valid=n, extras=ex)
+
+
+def family_cuda(q: torch.Tensor, r_layout: torch.Tensor, extras: tuple, *,
+                n: int, w: int, spec: DPSpec):
+    """Launch K7: one warp per query."""
+    B, m = q.shape
+    chunks = visited_chunks(m, r_layout, w, spec)
+    named = dict(zip(EXTRA_INPUTS[spec.family], extras))
+    rx = named.get("r_prev", named.get("bt"))
+    bl = named.get("bl")
+    cost = torch.empty((B,), dtype=torch.float32, device=q.device)
+    end = torch.empty((B,), dtype=torch.int32, device=q.device)
+    name = "soft_family_wavefront" if spec.soft else "family_wavefront"
+    lib = build.library(name)
+    fn = lib.family_wavefront_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] * 6 + [ctypes.c_void_p] * 3)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        # the constants are formed in double and rounded once to float32
+        # by ctypes, as the plain version's Python scalars are by torch
+        status = fn(q.data_ptr(), r_layout.data_ptr(),
+                    0 if rx is None else rx.data_ptr(),
+                    0 if bl is None else bl.data_ptr(), B, m, n, chunks,
+                    -1 if spec.band is None else int(spec.band), w,
+                    FAMILY_CODES[spec.family], int(spec.distance == "abs"),
+                    spec.nu + spec.lam, 2.0 * spec.nu, spec.gap,
+                    spec.gap_penalty, spec.match_reward, spec.gamma,
+                    cost.data_ptr(), end.data_ptr(), stream)
+    build.check(lib, status, f"family wavefront launch (w={w}, B={B}, "
+                             f"m={m}, {spec.describe()})")
+    counter.add(variant(spec))
+    return cost, end
+
+
+def family_wavefront(q: torch.Tensor, r_layout: torch.Tensor,
+                     extras: tuple = (), *, n: int, w: int, spec: DPSpec):
+    """The K7 wrapper.  q: (B, M) float32; r_layout from
+    ``wavefront.prepare_reference``; extras from ``ops.family_extras``;
+    n: the true reference length.  Returns (cost (B,), end (B,) int32):
+    the corner (end n - 1, or (+inf, 0) when blocked) or the local
+    fold's best cell and its column."""
+    validate(q, r_layout, extras, n=n, w=w, spec=spec)
+    if build.on_card(q):
+        return family_cuda(q, r_layout, extras, n=n, w=w, spec=spec)
+    return family_plain(q, r_layout, extras, n=n, w=w, spec=spec)

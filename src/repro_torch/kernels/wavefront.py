@@ -5,7 +5,10 @@ Replace ``repro/kernels/wavefront.py::wavefront_call`` under the sdtw
 plans:
 
 * hard-min (``wavefront``): cost + end (K1), + start (K3,
-  ``with_window``), under a Sakoe–Chiba band with band-skip (K4);
+  ``with_window``), under a Sakoe–Chiba band with band-skip (K4); with
+  ``compute_dtype=torch.bfloat16`` the same sweeps with bf16 cells and
+  carries and a float32 fold (bf16-K1, a third library built from the
+  same source with ``-DREPRO_BF16``);
 * soft-min (``soft_wavefront``, ``soft_checkpoint``): the soft forward
   (K5, ``SoftMinFold``), and the checkpointed forward and the reverse
   sweep of the soft-DTW backward (K6, ``checkpoint=True`` /
@@ -37,16 +40,19 @@ WARP = 32
 WIDTHS = (2, 4, 8, 14, 16, 32)     # the instantiations in wavefront.cu
 SMEM_LIMIT = 232_448               # dynamic shared memory per block, H100
 KERNEL_DISTANCES = ("sqeuclidean", "abs")
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 counter = build.LaunchCounter("wavefront")
 soft_counter = build.LaunchCounter("soft_wavefront")
 
 
-def variant(spec: DPSpec, with_window: bool) -> str:
+def variant(spec: DPSpec, with_window: bool,
+            compute_dtype=torch.float32) -> str:
     """The JAX package's name for the plan a launch runs: K1 (cost,
-    end), K3 (+ start), K4 (either under a band)."""
-    if spec.band is not None:
-        return "K4"
-    return "K3" if with_window else "K1"
+    end), K3 (+ start), K4 (either under a band); ``bf16-`` in front
+    for the bf16 compute type."""
+    name = "K4" if spec.band is not None else ("K3" if with_window
+                                               else "K1")
+    return name if compute_dtype == torch.float32 else f"bf16-{name}"
 
 
 def chunk_cols(w: int) -> int:
@@ -110,20 +116,87 @@ def strip_bytes(m: int, with_window: bool) -> int:
     return (4 if with_window else 2) * 4 * m
 
 
-def validate(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
-             spec: DPSpec, with_window: bool) -> None:
-    """Shaped errors for operands the kernel does not take."""
-    if w not in WIDTHS:
-        raise ValueError(
-            f"segment_width={w} has no wavefront kernel instantiation; "
-            f"choose one of {WIDTHS}")
-    if spec.soft and with_window:
-        raise ValueError("with_window needs a hard-min spec: soft-min has "
-                         "no argmin path")
+def plan_kernel(spec: DPSpec) -> str:
+    """The wrapper a spec runs: ``"family"`` (K7) for twed / erp /
+    local, ``"soft"`` (K5/K6) for soft-min sdtw, ``"hard"`` (K1/K3/K4,
+    bf16-K1) for the rest."""
+    if spec.family != "sdtw":
+        return "family"
+    return "soft" if spec.soft else "hard"
+
+
+def check_plan(spec: DPSpec, *, kernel: str | None = None,
+               compute_dtype=torch.float32, with_window: bool = False,
+               reverse: bool = False, checkpoint: bool = False) -> None:
+    """Every plan rule in one place, the shaped errors of
+    ``repro.kernels.wavefront.KernelPlan.__post_init__``: the kernels
+    compute sqeuclidean and abs; a family runs in float32, has no start
+    lane and no reverse or checkpoint sweep; soft-min has no argmin path
+    and accumulates in float32; a reverse sweep is soft-min; a
+    checkpoint carries no start lane.  ``kernel``: the wrapper asking
+    (:func:`plan_kernel`), which must be the one the spec runs."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                         f"got {compute_dtype}")
     if spec.distance not in KERNEL_DISTANCES:
         raise ValueError(
             f"the wavefront kernel computes {KERNEL_DISTANCES}, not "
             f"{spec.distance!r}: use the engine or ref backend")
+    fam = spec.family
+    if fam != "sdtw":
+        if with_window:
+            raise ValueError(
+                f"family {fam!r} has no matched-window start pointers "
+                "on the kernel backend (window outputs ride the sdtw "
+                "free-start recurrence); use engine or ref for family "
+                "window outputs")
+        if reverse or checkpoint:
+            raise ValueError(
+                "reverse/checkpoint sweeps implement the soft-DTW "
+                f"backward; family {fam!r} plans do not support them")
+        if compute_dtype != torch.float32:
+            raise ValueError(
+                f"family {fam!r} runs the kernel in float32 (transition "
+                "costs and boundary prefixes must match the engine grid "
+                f"bit-for-bit); got compute_dtype={compute_dtype}")
+    if spec.soft and with_window:
+        raise ValueError("with_window needs a hard-min spec: soft-min has "
+                         "no argmin path")
+    if spec.soft and compute_dtype != torch.float32:
+        raise ValueError(
+            "the soft-min channel accumulates logsumexp pairs in float32; "
+            f"got compute_dtype={compute_dtype}")
+    if reverse and not spec.soft:
+        raise ValueError("reverse sweeps exist for the soft-DTW backward; "
+                         "hard-min plans have no reverse mode")
+    if checkpoint and with_window:
+        raise ValueError("checkpoint plans carry only the cost channel's "
+                         "boundary strips; with_window is not supported")
+    runs = plan_kernel(spec)
+    if kernel is None or kernel == runs:
+        return
+    if runs == "family":
+        raise ValueError(
+            f"the sdtw wavefront kernels run family 'sdtw', not {fam!r}: "
+            "family specs run K7 (repro_torch.kernels.family)")
+    if kernel == "family":
+        raise ValueError("K7 runs the families twed, erp and local, not "
+                         "'sdtw': sdtw specs run the sdtw wavefront")
+    if kernel == "soft":
+        raise ValueError(f"the soft wavefront needs a softmin spec "
+                         f"(reduction='softmin'), got {spec.describe()}")
+    raise ValueError(f"the hard-min wavefront runs hard-min specs: "
+                     f"{spec.describe()} runs the soft wavefront (K5)")
+
+
+def validate(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
+             with_window: bool) -> None:
+    """Shaped errors for operands the kernels do not take (the plan's
+    own are :func:`check_plan`'s)."""
+    if w not in WIDTHS:
+        raise ValueError(
+            f"segment_width={w} has no wavefront kernel instantiation; "
+            f"choose one of {WIDTHS}")
     if q.ndim != 2 or q.dtype != torch.float32 or not q.is_contiguous():
         raise ValueError(
             f"queries must be a contiguous (B, M) float32 tensor, got "
@@ -154,18 +227,23 @@ def validate(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
 
 
 def wavefront_plain(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
-                    w: int, spec: DPSpec, with_window: bool = False):
+                    w: int, spec: DPSpec, with_window: bool = False,
+                    compute_dtype=torch.float32):
     """The plain version: the engine's anti-diagonal sweep over the same
-    visited columns of the same layout, folding j < n only."""
+    visited columns of the same layout, folding j < n only (in bf16
+    with a float32 fold for bf16-K1)."""
     chunks = band_grid_chunks(q.shape[1], spec.band,
                               r_layout.shape[0] // chunk_cols(w), w)
     return sdtw_engine(q, r_layout[:chunks * chunk_cols(w)], spec=spec,
-                       return_window=with_window, n_valid=n)
+                       return_window=with_window, n_valid=n,
+                       compute_dtype=compute_dtype)
 
 
 def wavefront_cuda(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
-                   w: int, spec: DPSpec, with_window: bool = False):
-    """Launch the kernel: one warp per query."""
+                   w: int, spec: DPSpec, with_window: bool = False,
+                   compute_dtype=torch.float32):
+    """Launch the kernel: one warp per query.  The float32 operands are
+    rounded to bf16 on load by the bf16 build."""
     B, m = q.shape
     chunks = band_grid_chunks(m, spec.band,
                               r_layout.shape[0] // chunk_cols(w), w)
@@ -173,7 +251,8 @@ def wavefront_cuda(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
     end = torch.empty((B,), dtype=torch.int32, device=q.device)
     start = torch.empty((B if with_window else 1,), dtype=torch.int32,
                         device=q.device)
-    lib = build.library("wavefront")
+    bf16 = compute_dtype == torch.bfloat16
+    lib = build.library("wavefront_bf16" if bf16 else "wavefront")
     fn = lib.wavefront_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
@@ -185,25 +264,33 @@ def wavefront_cuda(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
                     int(with_window), int(spec.distance == "abs"),
                     cost.data_ptr(), end.data_ptr(), start.data_ptr(),
                     stream)
-    build.check(lib, status, f"wavefront launch (w={w}, B={B}, m={m})")
-    counter.add(variant(spec, with_window))
+    build.check(lib, status, f"wavefront launch (w={w}, B={B}, m={m}, "
+                             f"{compute_dtype})")
+    counter.add(variant(spec, with_window, compute_dtype))
     if with_window:
         return cost, start, end
     return cost, end
 
 
 def wavefront(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
-              spec: DPSpec, with_window: bool = False):
+              spec: DPSpec, with_window: bool = False,
+              compute_dtype=torch.float32):
     """The wrapper.  q: (B, M) float32; r_layout from
-    :func:`prepare_reference`; n: the true reference length.  Returns
-    (cost, end) or (cost, start, end); end and start are raw columns
-    (``repro_torch.kernels.ops`` clamps them)."""
-    validate(q, r_layout, n=n, w=w, spec=spec, with_window=with_window)
+    :func:`prepare_reference`; n: the true reference length;
+    ``compute_dtype`` float32 (K1/K3/K4) or bfloat16 (bf16-K1, its
+    float32 cost a bf16 value).  Returns (cost, end) or (cost, start,
+    end); end and start are raw columns (``repro_torch.kernels.ops``
+    clamps them)."""
+    check_plan(spec, kernel="hard", compute_dtype=compute_dtype,
+               with_window=with_window)
+    validate(q, r_layout, n=n, w=w, with_window=with_window)
     if build.on_card(q):
         return wavefront_cuda(q, r_layout, n=n, w=w, spec=spec,
-                              with_window=with_window)
+                              with_window=with_window,
+                              compute_dtype=compute_dtype)
     return wavefront_plain(q, r_layout, n=n, w=w, spec=spec,
-                           with_window=with_window)
+                           with_window=with_window,
+                           compute_dtype=compute_dtype)
 
 
 # ------------------------------------------------------------ soft-min
@@ -357,18 +444,12 @@ def soft_cuda(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
     return (cost, end, ckpt) if strips else (cost, end)
 
 
-def _check_soft(spec: DPSpec) -> None:
-    if not spec.soft:
-        raise ValueError(f"the soft wavefront needs a softmin spec, got "
-                         f"{spec.describe()}")
-
-
 def soft_wavefront(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
                    w: int, spec: DPSpec):
     """The K5 wrapper: soft cost and hard end of each query (end a raw
     column; ``repro_torch.kernels.ops`` clamps it)."""
-    _check_soft(spec)
-    validate(q, r_layout, n=n, w=w, spec=spec, with_window=False)
+    check_plan(spec, kernel="soft")
+    validate(q, r_layout, n=n, w=w, with_window=False)
     if build.on_card(q):
         return soft_cuda(q, r_layout, n=n, w=w, spec=spec)
     return soft_plain(q, r_layout, n=n, w=w, spec=spec)
@@ -383,8 +464,8 @@ def soft_checkpoint(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
     returns the reverse cost readout (equal to the forward cost), the
     flipped argmin column, and the B strips of the visited flipped
     chunks, in flipped row order."""
-    _check_soft(spec)
-    validate(q, r_layout, n=n, w=w, spec=spec, with_window=False)
+    check_plan(spec, kernel="soft", reverse=reverse, checkpoint=True)
+    validate(q, r_layout, n=n, w=w, with_window=False)
     if build.on_card(q):
         return soft_cuda(q, r_layout, n=n, w=w, spec=spec, reverse=reverse,
                          checkpoint=True)

@@ -107,8 +107,13 @@ def test_spec_from_dict():
     assert dataclasses.asdict(spec) == d
     soft = dataclasses.asdict(JaxSpec(reduction="softmin", gamma=0.25))
     assert dataclasses.asdict(convert.spec_from_dict(soft)) == soft
-    with pytest.raises(NotPortedError, match="slice 4"):
-        convert.spec_from_dict(dataclasses.asdict(JaxSpec(family="twed")))
+    fam = dataclasses.asdict(JaxSpec(family="twed", nu=0.5, lam=0.75,
+                                     band=4))
+    assert dataclasses.asdict(convert.spec_from_dict(fam)) == fam
+    assert convert.spec_from_dict(fam).describe() == JaxSpec(
+        **fam).describe()
+    with pytest.raises(NotPortedError, match="accum_dtype"):
+        convert.spec_from_dict({**d, "accum_dtype": "bfloat16"})
     with pytest.raises(ValueError, match="unknown DPSpec field"):
         convert.spec_from_dict({**d, "mystery": 1})
 
@@ -117,7 +122,8 @@ def test_spec_from_dict():
     (dict(reduction="softmin", gamma=0.0), ValueError, "gamma > 0"),
     (dict(gamma=0.5, outputs=("cost", "start")), ValueError,
      "under soft-min"),
-    (dict(family="erp"), NotPortedError, "slice 4"),
+    (dict(family="erp", outputs=("cost", "path")), ValueError,
+     "output 'path' for family 'erp'"),
     (dict(outputs=("cost", "path")), NotPortedError, "slice 3"),
     (dict(outputs="soft_alignment"), ValueError, "under hard-min"),
     (dict(distance="cosine", backend="kernel"), ValueError,

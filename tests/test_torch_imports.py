@@ -12,7 +12,7 @@ import torch
 
 import repro_torch
 from repro_torch.align import soft
-from repro_torch.kernels import build, normalizer, wavefront
+from repro_torch.kernels import build, family, normalizer, wavefront
 from repro_torch.train.step import make_sdtw_loss
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -46,7 +46,23 @@ def test_no_jax_and_no_repro_in_the_port():
     assert len(names) >= 25
     assert {"repro_torch.align.soft", "repro_torch.train.step",
             "repro_torch.kernels.backward",
-            "repro_torch.core.softdtw"} <= names
+            "repro_torch.core.softdtw", "repro_torch.dp",
+            "repro_torch.dp.oracle", "repro_torch.kernels.family"} <= names
+
+
+def test_every_kernel_source_has_a_build_target():
+    """K7 (hard and soft) and bf16-K1 are libraries of their own, each
+    from a source in csrc/, built by its own nvcc."""
+    assert build.TARGETS["family_wavefront"] == ("family_wavefront.cu",
+                                                 ["-fmad=false"])
+    assert build.TARGETS["soft_family_wavefront"] == (
+        "family_wavefront.cu", ["-DREPRO_SOFT"])
+    assert build.TARGETS["wavefront_bf16"] == (
+        "wavefront.cu", ["-fmad=false", "-DREPRO_BF16"])
+    sources = {src for src, _ in build.TARGETS.values()}
+    assert sources == {p.name for p in build.CSRC.glob("*.cu")}
+    for src in sources:
+        assert (build.CSRC / src).is_file()
 
 
 class _CardTensor:
@@ -82,11 +98,23 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
                         lambda x, eps: launched.append("K2") or x)
     monkeypatch.setattr(wavefront, "wavefront_cuda",
                         lambda *a, **k: launched.append("K1") or a)
+    monkeypatch.setattr(family, "family_plain", _forbid)
+    monkeypatch.setattr(family, "validate", lambda *a, **k: None)
+    monkeypatch.setattr(
+        family, "family_cuda",
+        lambda *a, spec, **k: launched.append(family.variant(spec)))
     card = _CardTensor()
     assert build.on_card(card)
     normalizer.normalize(card)
     wavefront.wavefront(card, card, n=1, w=8, spec=repro_torch.DPSpec())
-    assert launched == ["K2", "K1"]
+    wavefront.wavefront(card, card, n=1, w=8, spec=repro_torch.DPSpec(),
+                        compute_dtype=torch.bfloat16)
+    for fam, gamma in (("twed", None), ("local", 0.5)):
+        family.family_wavefront(card, card, (), n=1, w=8,
+                                spec=repro_torch.DPSpec(
+                                    family=fam, reduction="softmin"
+                                    if gamma else "hardmin"))
+    assert launched == ["K2", "K1", "K1", "K7-corner", "K7-soft-cells"]
 
 
 def test_cpu_tensor_takes_the_plain_version(monkeypatch):
