@@ -9,25 +9,33 @@ NVIDIA H100.
 Phases, one JSON line each:
   1. the card (``nvidia-smi`` name and power limit) and the kernel build
      (``nvcc -Xptxas -v``: registers and spills per instantiation);
-  2. K2 (normalizer kernel) against its plain version on the PAPER query
-     batch (512, 2000) and reference (100,000,), atol = rtol = 1e-5;
+  2. K2 (its row and cluster kernels) against its plain version on the
+     PAPER query batch (512, 2000) and reference (100,000,), and at 1 and
+     513 rows of 1, 31, 2,001, 100,000, 100,003 and 300,003 samples, each
+     aligned and one float into its buffer: y and the (mean, var) stats within
+     atol = rtol = 1e-5;
   3. K1/K3/K4 (wavefront kernel) against its plain version, bit for bit:
      batches 1, 9, 64; m = 33 and 2000; references of one and several
      chunks with ragged tails; every instantiated width; bands None, 0,
      64 and 900 (band-skip, and the blocked band answered with no
      launch); both distances — every one of the 48 instantiations runs
-     on a multi-chunk reference; plus the float64 oracle on a small
-     input;
+     on a multi-chunk reference; references of 1, P-1, P, P+1 and 2P+1
+     chunks (P warps per CTA) at every width, m 1 and 33; plus the
+     float64 oracle on a small input;
   4. the main path at full PAPER width: ``repro_torch.sdtw`` and an
      ``Aligner`` on 512 queries x 2,000 against 100,000, every planted
      window found, launch counts read from the wrappers, and the whole
      output held against the plain version bit for bit; then the banded
      path (``repro_torch.sdtw(..., band=900)``, K4) on the same data,
      its counts read on their own, bit for bit against the plain version;
-  5. times from CUDA events (warm): K1, K3 and K4 at PAPER, every width,
-     K2 (on the batch and on the reference), a warm ``Aligner`` call;
-     the plain versions' times and the K2 yardstick
-     ``torch.nn.functional.layer_norm``; each kernel's bound;
+  5. ``geometry`` (warps per CTA, ring rows, shared memory per CTA, CTAs
+     resident per SM of K1 and K3 at PAPER; K2's kernel, cluster size and
+     grid) and ``times``: CUDA events (warm) for K1 and K3 at PAPER, every
+     width, and a warm ``Aligner`` call; device time from a CUDA graph
+     of 20 launches for the small kernels (K4, K2 on the batch and on the
+     reference, K2's plain version and its yardstick
+     ``torch.nn.functional.layer_norm``), each beside its host-paced
+     time; each kernel's bound;
   6. ``soft_parity``: K5 and both K6 sweeps against their plain versions
      on every width, gamma 0.01 / 0.1 / 1.0, bands None, 0, 64 and 900,
      B 1 and 9, both distances, on references of several chunks whose
@@ -144,6 +152,14 @@ FAMILY_OPS = {  # (variant, family) -> (FP32, MUFU) a cell
 # bf16 rate as twice its float32 rate, 134 against 67 TFLOP/s).
 BF16_OPS_PER_CELL = 5
 BF16_PER_LANE = 2
+# K2 at lengths that give the row kernel and the cluster kernel ragged,
+# unaligned rows (each with 1 and 513 rows; 300,003: the cluster kernel
+# that reads its slice twice)
+K2_LENGTHS = (1, 31, 2001, 100_000, 100_003, 300_003)
+# device time of a small kernel: a CUDA graph of this many launches,
+# replayed GRAPH_REPLAYS times between two events
+GRAPH_LAUNCHES = 20
+GRAPH_REPLAYS = 5
 
 
 def emit(obj) -> None:
@@ -274,6 +290,35 @@ class Timer:
         e1.record()
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(torch, fn, cuda: bool) -> float | None:
+    """Device time (ms) of one call of ``fn``: GRAPH_LAUNCHES calls
+    captured in a CUDA graph, the graph replayed GRAPH_REPLAYS times
+    between two CUDA events, so that no host work paces the launches.
+    None on the CPU rehearsal."""
+    if not cuda:
+        return None
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):        # warm up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (GRAPH_REPLAYS * GRAPH_LAUNCHES)
 
 
 def least_time(c, n_bytes: float, fp32_ops: float, mufu_ops: float = 0.0,
@@ -1120,18 +1165,38 @@ def main(argv=None) -> int:
     r_raw = torch.from_numpy(ref_np).to(dev)
 
     # ------------------------------------------------ 2. K2 parity
-    k2 = {}
-    for label, x in (("queries", q_raw), ("reference", r_raw[None])):
-        got = normalizer.normalize(x.contiguous())
-        want = normalizer.normalize_plain(x)
+    k2_main = {}
+    k2_rng = np.random.default_rng(args.seed + 8)
+    shapes = [("queries", q_raw), ("reference", r_raw[None])]
+    # both kernels at ragged lengths, rows not 16-byte aligned (n not a
+    # multiple of 4, and a view one float into its buffer)
+    for rows in (1, 513):
+        for n_k2 in (K2_LENGTHS if cuda else (1, 31, 2001)):
+            flat = torch.from_numpy((k2_rng.normal(size=rows * n_k2 + 1) * 3
+                                     + 1).astype(np.float32)).to(dev)
+            shapes.append((f"{rows}x{n_k2}", flat[:-1].view(rows, n_k2)))
+            shapes.append((f"{rows}x{n_k2}+1", flat[1:].view(rows, n_k2)))
+    k2_worst = 0.0
+    for label, x in shapes:
+        got, got_stats = normalizer.normalize_cuda(x, with_stats=True) \
+            if cuda else normalizer.normalize_plain(x, with_stats=True)
+        want, want_stats = normalizer.normalize_plain(x, with_stats=True)
         sync()
         err = float((got - want).abs().max())
-        ok = bool(torch.allclose(got, want, atol=1e-5, rtol=1e-5))
-        k2[label] = {"shape": list(x.shape), "max_abs_err": err, "ok": ok}
+        ok = bool(torch.allclose(got, want, atol=1e-5, rtol=1e-5)
+                  and torch.allclose(got_stats, want_stats, atol=1e-5,
+                                     rtol=1e-5))
+        k2_worst = max(k2_worst, err)
+        if label in ("queries", "reference"):
+            k2_main[label] = {"shape": list(x.shape), "max_abs_err": err,
+                              "ok": ok}
         require(ok, f"K2 {label}: max abs err {err} over atol=rtol=1e-5")
-    emit({"phase": "k2_parity", "tolerance": "atol=rtol=1e-5", **k2})
+    emit({"phase": "k2_parity", "tolerance": "atol=rtol=1e-5 (y and the "
+          "(mean, var) stats)", **k2_main, "shapes": [lb for lb, _ in shapes],
+          "worst_abs_err": k2_worst})
 
     # ------------------------------------------------ 3. K1/K3/K4 parity
+    t_parity = time.perf_counter()
     rng = np.random.default_rng(args.seed + 1)
     m_long = cfg.query_len
     sets = [(1, 33, 50), (9, 33, 3000), (64, m_long, 3000),
@@ -1149,11 +1214,13 @@ def main(argv=None) -> int:
                 if distance == "abs" and m != 33 and band != 900:
                     continue       # enough for every abs instantiation
                 spec = DPSpec(band=band, distance=distance)
+                # one plain sweep with the start lane: K1 is held to its
+                # cost and end, K3 to all three
+                layout2 = wavefront.prepare_reference(r, 2)
+                want3 = wavefront.wavefront_plain(
+                    q, layout2, n=n, w=2, spec=spec, with_window=True)
                 for window in (False, True):
-                    layout2 = wavefront.prepare_reference(r, 2)
-                    want = wavefront.wavefront_plain(
-                        q, layout2, n=n, w=2, spec=spec,
-                        with_window=window)
+                    want = want3 if window else (want3[0], want3[2])
                     if ops.band_blocked(m, n, band):
                         before = wavefront.counter.count
                         got = ops.sdtw_wavefront_prepped(
@@ -1182,6 +1249,39 @@ def main(argv=None) -> int:
                                   "distance": distance, "window": window,
                                   "got": [a.tolist()[:4] for a in got],
                                   "want": [a.tolist()[:4] for a in want]})
+    # chunk counts around the warps of a CTA (P): 1, P-1, P, P+1 and 2P+1
+    # chunks at every width (idle warps, a ring that wraps), m 1 and 33;
+    # one plain version per reference, K1 held to its cost and end
+    P = wavefront.WARPS
+    chunk_cases = 0
+    for m_c in (1, 33):
+        for w_c in (wavefront.WIDTHS if cuda else (2,)):
+            W_c = wavefront.chunk_cols(w_c)
+            for k in (1, P - 1, P, P + 1, 2 * P + 1):
+                n_c = (k - 1) * W_c + W_c // 2 + 3
+                q = normalize_batch(torch.from_numpy(
+                    rng.normal(size=(3, m_c)).astype(np.float32)).to(dev))
+                r = normalize_batch(torch.from_numpy(
+                    rng.normal(size=(n_c,)).astype(np.float32)).to(dev))
+                lay = wavefront.prepare_reference(r, w_c)
+                want = wavefront.wavefront_plain(q, lay, n=n_c, w=w_c,
+                                                 spec=DPSpec(),
+                                                 with_window=True)
+                for window in (False, True):
+                    got = wavefront.wavefront(q, lay, n=n_c, w=w_c,
+                                              spec=DPSpec(),
+                                              with_window=window)
+                    sync()
+                    checked += 1
+                    chunk_cases += 1
+                    ref = want if window else (want[0], want[2])
+                    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                        mismatches += 1
+                        emit({"phase": "k1_mismatch", "B": 3, "m": m_c,
+                              "n": n_c, "chunks": k, "w": w_c,
+                              "window": window,
+                              "got": [a.tolist()[:4] for a in got],
+                              "want": [a.tolist()[:4] for a in ref]})
     # the float64 oracle on a small input
     q_small = normalize_batch(torch.from_numpy(
         rng.normal(size=(3, 33)).astype(np.float32)).to(dev))
@@ -1196,6 +1296,8 @@ def main(argv=None) -> int:
                     for b, (c, e) in enumerate(oracle))
     emit({"phase": "k1_k3_k4_parity", "rule": "bit-equal to the plain "
           "version (cost, end, start)", "cases": checked,
+          "chunk_count_cases": chunk_cases, "warps_per_cta": P,
+          "seconds": time.perf_counter() - t_parity,
           "mismatches": mismatches, "blocked_band_cases": blocked_checked,
           "launches": wavefront.counter.count - launches_before,
           "oracle_float64_ok": oracle_ok})
@@ -1220,11 +1322,15 @@ def main(argv=None) -> int:
     sync()
     main_s = time.perf_counter() - t0
     launches = {"normalizer": normalizer.counter.count,
+                "normalizer_by_kernel": dict(normalizer.counter.by_variant),
                 "wavefront": dict(wavefront.counter.by_variant)}
     require(not cuda or (launches["normalizer"] == 4
+                         and launches["normalizer_by_kernel"] == {
+                             "rows": 2, "cluster": 2}
                          and launches["wavefront"] == {"K1": 1, "K3": 1}),
-            f"main path launches {launches}: want 4 normalizer (queries "
-            f"and reference, per call), K1 once and K3 once")
+            f"main path launches {launches}: want 4 normalizer (the rows "
+            f"kernel on the queries, the cluster kernel on the reference, "
+            f"per call), K1 once and K3 once")
     for out in (res.cost, res.end, win.cost, win.start, win.end):
         require(tuple(out.shape) == (B,), f"output shape {out.shape}")
     require(bool(torch.isfinite(res.cost).all()), "non-finite cost")
@@ -1305,8 +1411,12 @@ def main(argv=None) -> int:
     k3_ms = timer(lambda: wavefront.wavefront(qn, layout, n=n, w=w,
                                               spec=spec, with_window=True),
                   reps)
-    k4_ms = timer(lambda: wavefront.wavefront(qn, layout, n=n, w=w,
-                                              spec=band_spec), 20)
+    # small kernels: device time from a CUDA graph of GRAPH_LAUNCHES
+    # launches, beside the host-paced time of 20 calls between two events
+    k4_fn = lambda: wavefront.wavefront(qn, layout, n=n, w=w,  # noqa: E731
+                                        spec=band_spec)
+    k4_ms = graph_ms(torch, k4_fn, cuda)
+    k4_host_ms = timer(k4_fn, 20)
     width_ms = {}
     for ww in wavefront.WIDTHS:
         lay = wavefront.prepare_reference(aligner.reference, ww)
@@ -1315,14 +1425,18 @@ def main(argv=None) -> int:
     best_w = min(width_ms, key=width_ms.get)
     qc = q_raw.contiguous()
     rc = r_raw[None].contiguous()
-    k2_q_ms = timer(lambda: normalizer.normalize(qc), 20)
-    k2_r_ms = timer(lambda: normalizer.normalize(rc), 20)
-    k2_plain_ms = timer(lambda: normalizer.normalize_plain(qc), 20)
-    k2_lib_ms = timer(lambda: torch.nn.functional.layer_norm(
-        qc, (qc.shape[-1],), eps=1e-12), 20)
-    k2_r_plain_ms = timer(lambda: normalizer.normalize_plain(rc), 20)
-    k2_r_lib_ms = timer(lambda: torch.nn.functional.layer_norm(
-        rc, (rc.shape[-1],), eps=1e-12), 20)
+    k2 = {}
+    for label, x in (("queries", qc), ("reference", rc)):
+        fns = {"ms": lambda: normalizer.normalize(x),
+               "library_ms": lambda: torch.nn.functional.layer_norm(
+                   x, (x.shape[-1],), eps=1e-12),
+               "plain_ms": lambda: normalizer.normalize_plain(x)}
+        k2[label] = {key: graph_ms(torch, fn, cuda)
+                     for key, fn in fns.items()}
+        k2[label].update({f"{key}_host_paced": timer(fn, 20)
+                          for key, fn in fns.items()})
+        k2[label]["geometry"] = normalizer.geometry(*x.shape)._asdict()
+        k2[label]["bound_ms"], k2[label]["bound_by"] = None, "bytes"
 
     def warm_call():
         aligner(queries_np)
@@ -1353,22 +1467,40 @@ def main(argv=None) -> int:
     k1_bound, k1_by = bound(sweep_bytes, cells * K1_OPS_PER_CELL)
     k3_bound, k3_by = bound(sweep_bytes + B * 4, cells * K3_OPS_PER_CELL)
     k4_bound, k4_by = bound(sweep_bytes, k4_cells * K1_OPS_PER_CELL)
-    k2_bound, k2_by = bound(2 * qc.numel() * 4,
-                            K2_OPS_PER_ELEMENT * qc.numel())
+    for label, x in (("queries", qc), ("reference", rc)):
+        k2[label]["bound_ms"], k2[label]["bound_by"] = bound(
+            2 * x.numel() * 4, K2_OPS_PER_ELEMENT * x.numel())
+    # the launch geometry of the main path's kernels
+    geometry = {}
+    for label, win in (("K1", False), ("K3", True)):
+        geo = wavefront.hard_geometry(m, win)
+        geometry[label] = {
+            "warps_per_cta": geo.warps, "ring_rows": geo.ring_rows,
+            "ring_groups": geo.slots, "smem_bytes_per_cta": geo.smem_bytes,
+            "ctas": B, "ctas_resident_per_sm": wavefront.hard_occupancy(
+                m, w, with_window=win) if cuda else None}
+    for label in ("queries", "reference"):
+        geo = k2[label]["geometry"]
+        geometry[f"K2 {label}"] = {
+            "kernel": "cluster" if geo["cluster"] else "rows",
+            "cluster_ctas": geo["cluster"], "float4_per_thread": geo["vec"],
+            "threads_per_cta": geo["threads"], "ctas": geo["grid"]}
+    emit({"phase": "geometry", "segment_width": w, "query_len": m,
+          **geometry, "registers": "chiprun_out/ptxas.json"})
     emit({"phase": "times", "clock": "cuda events" if cuda
           else "host clock (cpu rehearsal, not a device number)",
           "nvidia_smi": smi, "k1_ms": k1_ms, "k3_ms": k3_ms,
-          "k4_ms": k4_ms, "k4_band": BAND,
+          "k4_ms": k4_ms, "k4_host_paced_ms": k4_host_ms, "k4_band": BAND,
+          "small_kernels": f"ms: device time, a CUDA graph of "
+                           f"{GRAPH_LAUNCHES} launches replayed "
+                           f"{GRAPH_REPLAYS} times; *_host_paced: 20 calls "
+                           f"between two events, paced by the host",
           "k1_ms_by_width": width_ms, "best_width": best_w,
           "k1_plain_ms": plain_k1_ms, "k3_plain_ms": plain_k3_ms,
-          "k4_plain_ms": plain_k4_ms,
-          "k2_queries_ms": k2_q_ms, "k2_reference_ms": k2_r_ms,
-          "k2_plain_ms": k2_plain_ms, "k2_layer_norm_ms": k2_lib_ms,
-          "k2_reference_plain_ms": k2_r_plain_ms,
-          "k2_reference_layer_norm_ms": k2_r_lib_ms,
+          "k4_plain_ms": plain_k4_ms, "k2": k2,
           "aligner_warm_call_ms": aligner_ms,
           "k1_bound_ms": k1_bound, "k3_bound_ms": k3_bound,
-          "k4_bound_ms": k4_bound, "k2_bound_ms": k2_bound,
+          "k4_bound_ms": k4_bound,
           "cells": cells, "k4_cells_in_band": k4_cells,
           "k4_cells_visited": B * m * k4_chunks * wavefront.chunk_cols(w),
           "sm_clock_mhz_idle": clock_idle,
@@ -1450,16 +1582,36 @@ def main(argv=None) -> int:
          "path": f"repro_torch.sdtw(band={BAND})",
          "launches": band_launches["wavefront"].get("K4", 0),
          "parity": "bit-equal to the plain version",
-         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": plain_k4_ms,
+         "max_abs_err": k4_err, "ms": k4_ms,
+         "timing": "device time, CUDA graph",
+         "ms_host_paced": k4_host_ms, "plain_ms": plain_k4_ms,
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None},
-        {"name": "normalizer_K2", "route": "cuda",
+        {"name": "normalizer_K2_rows", "route": "cuda",
          "source": cu + "normalizer.cu",
          "replaces": "src/repro/kernels/normalizer.py:48",
-         "launches": launches["normalizer"],
+         "path": "the query batch (512, 2000) of the main path",
+         "launches": launches["normalizer_by_kernel"].get("rows", 0),
          "parity": "within atol=rtol=1e-5 of the plain version",
-         "max_abs_err": k2["queries"]["max_abs_err"], "ms": k2_q_ms,
-         "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": k2_lib_ms},
+         "max_abs_err": k2_main["queries"]["max_abs_err"], "ms": k2["queries"]["ms"],
+         "timing": "device time, CUDA graph (ms, plain_ms, library_ms)",
+         "ms_host_paced": k2["queries"]["ms_host_paced"],
+         "plain_ms": k2["queries"]["plain_ms"],
+         "bound_ms": k2["queries"]["bound_ms"],
+         "bound_by": k2["queries"]["bound_by"],
+         "library_ms": k2["queries"]["library_ms"]},
+        {"name": "normalizer_K2_cluster", "route": "cuda",
+         "source": cu + "normalizer.cu",
+         "replaces": "src/repro/kernels/normalizer.py:48",
+         "path": "the reference (1, 100000) of the main path",
+         "launches": launches["normalizer_by_kernel"].get("cluster", 0),
+         "parity": "within atol=rtol=1e-5 of the plain version",
+         "max_abs_err": k2_main["reference"]["max_abs_err"], "ms": k2["reference"]["ms"],
+         "timing": "device time, CUDA graph (ms, plain_ms, library_ms)",
+         "ms_host_paced": k2["reference"]["ms_host_paced"],
+         "plain_ms": k2["reference"]["plain_ms"],
+         "bound_ms": k2["reference"]["bound_ms"],
+         "bound_by": k2["reference"]["bound_by"],
+         "library_ms": k2["reference"]["library_ms"]},
         {"name": "soft_wavefront_K5", "route": "cuda",
          "source": cu + "wavefront.cu",
          "replaces": "src/repro/kernels/wavefront.py:967",
@@ -1494,7 +1646,8 @@ def main(argv=None) -> int:
     ] + k7})
     if not cuda:
         return 0
-    require(launches["normalizer"] > 0 and launches["wavefront"]
+    require(all(launches["normalizer_by_kernel"].get(k, 0) > 0
+                for k in ("rows", "cluster")) and launches["wavefront"]
             and band_launches["wavefront"],
             "a kernel of the main path was never launched")
     require(main_soft["launches"]["soft_wavefront"].get("K5", 0) > 0

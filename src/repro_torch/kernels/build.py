@@ -45,7 +45,7 @@ TARGETS = {"wavefront": ("wavefront.cu", ["-fmad=false"]),
            "normalizer": ("normalizer.cu", [])}
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
 
 
 class LaunchCounter:
@@ -95,36 +95,36 @@ def _nvcc_version() -> str:
                           text=True, timeout=60, check=True).stdout
 
 
-def _target(name: str) -> tuple[Path, Path, list[str]]:
-    source, extra = TARGETS[name]
+def _target(name: str, extra: tuple = ()) -> tuple[Path, Path, list[str]]:
+    source, flags0 = TARGETS[name]
     src = CSRC / source
-    flags = ARCH + COMMON + extra
+    flags = ARCH + COMMON + flags0 + list(extra)
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
                             + _nvcc_version().encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so", src, flags
 
 
-def build_all() -> dict[str, str]:
-    """Compile every source that has no current library, one ``nvcc``
-    each, all in parallel.  Returns name -> ptxas report of the builds
-    made now.  Raises with nvcc's output if any build fails."""
+def _compile(jobs: dict) -> dict[str, str]:
+    """Compile every job (key -> (out, src, flags)) whose library does
+    not exist yet, one ``nvcc`` each, all in parallel.  Returns key ->
+    ptxas report of the builds made now; raises with nvcc's output if
+    any fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in TARGETS:
-        out, src, flags = _target(name)
+    for key, (out, src, flags) in jobs.items():
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
-        procs[name] = (subprocess.Popen(
+        procs[key] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, out)
     failed, logs = [], {}
-    for name, (proc, tmp, out) in procs.items():
+    for key, (proc, tmp, out) in procs.items():
         text, _ = proc.communicate()
-        logs[name] = text
+        logs[key] = text
         if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n"
+            failed.append(f"--- {key} (nvcc exit {proc.returncode})\n"
                           f"{text}")
             continue
         os.replace(tmp, out)
@@ -133,16 +133,29 @@ def build_all() -> dict[str, str]:
     return logs
 
 
-def library(name: str) -> ctypes.CDLL:
+def build_all() -> dict[str, str]:
+    """Compile every library of :data:`TARGETS` that has no current
+    build, one ``nvcc`` each, all in parallel.  Returns name -> ptxas
+    report of the builds made now.  Raises with nvcc's output if any
+    build fails."""
+    return _compile({name: _target(name) for name in TARGETS})
+
+
+def library(name: str, extra: tuple = ()) -> ctypes.CDLL:
     """The loaded library ``name`` (a key of :data:`TARGETS`), built on
-    first use."""
+    first use; ``extra``: more nvcc flags, for a variant built to be
+    measured beside it."""
     with _lock:
-        lib = _libs.get(name)
+        key = (name, tuple(extra))
+        lib = _libs.get(key)
         if lib is None:
-            out, _, _ = _target(name)
+            out, src, flags = _target(name, tuple(extra))
             if not out.exists():
-                build_all()
-            lib = _libs[name] = ctypes.CDLL(str(out))
+                if extra:
+                    _compile({name: (out, src, flags)})
+                else:
+                    build_all()
+            lib = _libs[key] = ctypes.CDLL(str(out))
         return lib
 
 

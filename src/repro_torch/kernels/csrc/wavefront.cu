@@ -8,51 +8,94 @@
 //     width W, window, band, distance).
 //   * soft-min (this file built with -DREPRO_SOFT as libsoft_wavefront,
 //     see the second half): SoftMinFold (K5), its checkpoint=True
-//     boundary strips and its reverse=True sweep (K6).
+//     boundary strips and its reverse=True sweep (K6).  It keeps the
+//     one-warp-per-query design with a double-buffered strip that its
+//     own comment describes.
 //   * bf16-K1 (the hard-min half built with -DREPRO_BF16 as
 //     libwavefront_bf16): K1/K3/K4 under compute_dtype=bfloat16
 //     (CarryChannel.reg_dtype, :132-134), see bf16() below.
 // The three libraries are compiled by three nvcc processes side by side.
 //
-// The hard-min kernel.  What bounds it on an H100: operations.  Every one of the B*M*N cells
-// costs a subtract, a multiply (or an abs), two mins and an add, all in a
-// chain along the row, and reads nothing from device memory (the query
-// sample and the W reference samples sit in registers).  Bytes moved are
+// The hard-min kernel.  What bounds it on an H100: operations.  Every one
+// of the B*M*N cells costs a subtract, a multiply (or an abs), two mins and
+// an add, and reads nothing from device memory (the query row sits in
+// shared memory, the W reference samples in registers).  Bytes moved are
 // negligible: B*M + N floats in, three numbers per query out.
 //
-// Design.  One warp per query.  The reference is cut into chunks of
-// 32*W columns; lane l owns the W consecutive columns
-// chunk*32*W + l*W + k (k < W) and holds their reference samples and the
-// previous row's W cell values in registers (the paper's thread
-// coarsening).  Within a chunk the warp sweeps the anti-diagonal: at step
-// t lane l computes query row i = t - l, so the left neighbour of its
-// first cell is lane l-1's last cell of the same row, computed one step
-// earlier, which arrives by __shfl_up_sync (the TPU kernel's pltpu.roll).
-// Lane 0 reads its left neighbour from the boundary strip that lane 31
-// wrote during the previous chunk.
-//
-// The TPU kernel ran its reference blocks as a sequential grid axis that
-// shared ONE VMEM strip.  CUDA blocks run concurrently and in no order, so
-// here the chunk loop runs inside the warp, and the strip is a
-// double-buffered shared-memory column of length M (the paper's two
-// buffers): chunk c reads buffer c&1 and writes buffer (c+1)&1, and a
-// __syncwarp between chunks orders lane 31's writes before lane 0's
-// reads (a second one ends every step; see there).  All 32 lanes execute
-// every step, so every shuffle has a full mask; cells of rows outside
-// [0, M) are computed and never used.
-//
+// Design: the paper's two levels, shuffles inside a wavefront and shared
+// memory between consecutive wavefronts.
+//   * One CTA of P warps (blockDim = 32 * P, P <= 8) per query.  The
+//     reference is cut into chunks of 32*W columns; lane l of the warp
+//     that sweeps chunk c owns the W consecutive columns
+//     c*32*W + l*W + k (k < W) and holds their reference samples and the
+//     previous row's W cell values in registers (the paper's thread
+//     coarsening).  Within a chunk the warp sweeps the anti-diagonal: at
+//     step t lane l computes query row i = t - l, so the left neighbour of
+//     its first cell is lane l-1's last cell of the same row, computed one
+//     step earlier, which arrives by __shfl_up_sync (the TPU kernel's
+//     pltpu.roll).
+//   * The chunks are dealt to the warps round-robin: warp p sweeps chunks
+//     p, p+P, p+2P, ...  Lane 31's last cell of each row of chunk c (its
+//     right boundary column) is chunk c+1's left boundary.  It goes from
+//     warp c mod P to warp (c+1) mod P through a shared-memory ring, one
+//     ring per link (warp p reads ring p and writes ring (p+1) mod P), in
+//     groups of 32 rows.  Each group slot has a full and an empty
+//     mbarrier (arrival count 1): lane 31 of the producer arrives on full
+//     after storing the group's rows, lane 0 of the consumer arrives on
+//     empty after its last read of the group, and the whole warp waits
+//     with try_wait.parity.  A warp meets its ring waits and arrivals once
+//     every 32 steps, at the steps t = 31 (mod 32), where both its
+//     consumer group (row t+1 is the first row of group (t+1)/32) and its
+//     producer group (row t-31 is the first of group (t-31)/32) change;
+//     it walks each link's stream of groups with a (slot, phase) cursor.
+//     Consecutive chunks start about (m+31)/P steps apart, so a ring of
+//     ceil((m+31)/(32P)) + 2 groups lets no warp wait in the steady state,
+//     and the P rings together hold about one column of m rows.  With
+//     much smaller rings every warp can end up waiting on a full ring (a
+//     deadlock); tests/test_torch_wavefront_design.py runs this schedule
+//     on a model of the mbarriers and finds the smallest ring that
+//     completes two groups below this one.  In each ring step the arrives
+//     come before the waits.  The last chunk writes no ring and chunk 0
+//     reads none; a
+//     warp left with no chunk (chunks < P) touches no mbarrier and meets
+//     its CTA only at the final __syncthreads.  Sizes come from the host
+//     (kernels/wavefront.py::hard_geometry).
+//   * The query row is staged once in shared memory, padded by 32 zeros
+//     on each side so that rows outside [0, m) need no clamp; each lane
+//     loads its next step's sample one step ahead, as lane 0 does its
+//     next left neighbour from the ring.
+//   * A cell is pre = min(up, upleft), off the chain, then
+//     val = cost + min(left, pre): one min and one add wait for the left
+//     neighbour.  min is exact and associative on these operands (no NaN,
+//     no -0: every cost and sum is >= +0), so val equals
+//     cost + min(min(left, up), upleft) bit for bit.  The start lane
+//     follows: spre = upleft < up ? s_upleft : s_up, then
+//     s = pre < left ? spre : s_left, which is start3's strict-< rule,
+//     ties included (tests/test_torch_wavefront_design.py).
+//   * Row tests belong to blocks of steps, not cells.  The steps run in
+//     blocks of 32 (block g: t = 32g - 1 + u, u < 32), each opened by the
+//     ring step; lane 0 reads index u of its consumer slot and lane 31
+//     writes index u of its producer slot.  Lane l meets row 0 at step l
+//     and row m-1 at step m-1+l, so only the first two blocks and the
+//     last one or two test row 0 (the free start), the fold of row m-1
+//     (strict < over ascending columns, and j < n, which only the last
+//     chunk can fail) and the ring rows outside [0, m); the steady blocks
+//     between them test nothing.
+//   * At the end each lane's (value, column, start) fold is merged by
+//     shuffles within the warp and through shared memory across the CTA,
+//     lexicographically on (value, column): the earliest column wins a
+//     tie.
 // Exactness: cells round as the plain version does ((q-r)*(q-r) with
 // __fmul_rn, no fused multiply-add, then __fadd_rn), and min is exact, so
 // on identical inputs cost, end and start equal the plain version bit for
 // bit.  Columns j >= n (the tail of the last chunk) are computed from the
-// zero padding of the reference and never folded; they only feed columns
-// to their right.  Each lane folds its bottom-row cells with a strict <
-// over ascending columns; the warp reduction is lexicographic on
-// (value, column), so the earliest column wins a tie.  Band-skip: the
-// host passes only the chunks holding a column <= (M-1) + band.
+// zero padding and never folded; they only feed columns to their right.
+// Cells of rows outside [0, m) are computed and never used.  Band-skip:
+// the host passes only the chunks holding a column <= (M-1) + band.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -66,15 +109,24 @@ constexpr unsigned kFull = 0xffffffffu;
 #include <cuda_bf16.h>
 #endif
 
+// 1: a __syncwarp() ends every step (see the step's end).  0 drops it;
+// built only to time the barrier (scripts/wavefront_variants.py).
+#ifndef REPRO_STEP_SYNCWARP
+#define REPRO_STEP_SYNCWARP 1
+#endif
+
 namespace {
 
 constexpr float kBig = 3.0e38f;   // KERNEL_BIG of repro/core/spec.py
 constexpr int kNoWindow = -1;     // NO_WINDOW
+constexpr int kMaxWarps = 8;      // warps per CTA (kernels/wavefront.py)
+constexpr int kGroup = 32;        // ring rows per full/empty pair
+constexpr int kQPad = 32;         // zeros each side of the staged query
 
 // The compute type.  Under -DREPRO_BF16 every operand and every cell
 // operation's float32 result is rounded to bf16 (round to nearest even),
 // which is what torch's bf16 ops do (compute in float32, round), so the
-// cells, the carries and the strip hold bf16 values and equal the plain
+// cells, the carries and the ring hold bf16 values and equal the plain
 // version (the engine in bf16) bit for bit; they stay in 32-bit
 // registers, and the fold compares them as float32, as the JAX plan's
 // MinArgminFold does.  The float32 build's bf16() is the identity.
@@ -86,137 +138,356 @@ __device__ __forceinline__ float bf16(float x) {
 #endif
 }
 
-template <int W, bool WINDOW, bool BAND, bool ABS>
-__global__ void __launch_bounds__(32)
-wavefront_kernel(const float* __restrict__ q, const float* __restrict__ r,
-                 int m, int n, int chunks, int band,
-                 float* __restrict__ cost_out, int* __restrict__ end_out,
-                 int* __restrict__ start_out) {
-  extern __shared__ float strip[];            // [2][m] f32 (+ [2][m] i32)
-  int* sstrip = reinterpret_cast<int*>(strip + 2 * m);
-  const int lane = threadIdx.x;
-  const float* qb = q + static_cast<size_t>(blockIdx.x) * m;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  float prev[W];                              // row i-1 of my W cells
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// release: the arriving thread's earlier shared-memory accesses are
+// visible to a thread whose wait sees the phase complete
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// acquire: true once the phase of the given parity has completed
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// One warp's registers: its W columns of the current chunk, the carries
+// of the anti-diagonal, and its running fold.
+template <int W, bool WINDOW>
+struct Lane {
+  float rv[W];      // reference samples of my W columns
+  float prev[W];    // row i-1 of my W cells
   int sprev[W];
-  float best_v = INFINITY;
-  int best_j = 0, best_s = kNoWindow;
+  float left, upleft, qv;
+  int sleft, supleft;
+  float best_v;
+  int best_j, best_s;
+};
 
-  for (int c = 0; c < chunks; ++c) {
-    const int j0 = (c * 32 + lane) * W;
-    float rv[W];
+// What one step reads and writes outside the warp's registers.
+// qrow: the staged query at sq + kQPad + 1 - lane, so qrow[t] is my next
+// step's sample; rd / wr: the ring slots of the current consumer and
+// producer groups, which hold rows t+1 and t-31 at index u; reads / writes:
+// this lane is lane 0 of a chunk with a left neighbour / lane 31 of a
+// chunk with a right neighbour.
+struct StepIO {
+  const float* qrow;
+  const float* rd;
+  const int* srd;
+  float* wr;
+  int* swr;
+  bool reads, writes;
+};
+
+// One step of one chunk: lane l computes row i = t - l of its W columns.
+// EDGE: a block of steps that may meet row 0 (t < 32), row m-1 (the last
+// 32 steps) or rows outside [0, m) at the ring; every test is on.  A
+// steady block (EDGE false) tests nothing.
+template <int W, bool WINDOW, bool BAND, bool ABS, bool EDGE>
+__device__ __forceinline__ void step(Lane<W, WINDOW>& L, int t, int u,
+                                     int lane, int j0, int m, int n,
+                                     int band, const StepIO& io) {
+  const int i = t - lane;
+  const float qv = L.qv;
+  L.qv = io.qrow[t];                        // next step's sample
+  float next_left = kBig;                   // lane 0's next left neighbour
+  int next_sleft = kNoWindow;
+  if (io.reads && (!EDGE || t + 1 < m)) {
+    next_left = io.rd[u];
+    if (WINDOW) next_sleft = io.srd[u];
+  }
+  float lft = L.left, ul = L.upleft;
+  int slft = L.sleft, sul = L.supleft;
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int j = j0 + k;
+    const float d = bf16(__fsub_rn(qv, L.rv[k]));
+    const float cst = ABS ? fabsf(d) : bf16(__fmul_rn(d, d));
+    const float up = L.prev[k];
+    const float pre = fminf(up, ul);        // off the chain
+    float val = bf16(__fadd_rn(cst, fminf(lft, pre)));
+    int s = 0;
+    if (WINDOW) {
+      const int spre = (ul < up) ? sul : L.sprev[k];
+      s = (pre < lft) ? spre : slft;
+    }
+    if (EDGE && i == 0) {
+      val = cst;                            // free start: D[-1, j] = 0
+      if (WINDOW) s = j;
+    }
+    if (BAND && abs(i - j) > band) {
+      val = kBig;                           // out of band: never folded
+      if (WINDOW) s = kNoWindow;
+    }
+    ul = up;
+    L.prev[k] = val;
+    lft = val;
+    if (WINDOW) {
+      sul = L.sprev[k];
+      L.sprev[k] = s;
+      slft = s;
+    }
+  }
+  if (EDGE && i == m - 1) {
 #pragma unroll
     for (int k = 0; k < W; ++k) {
-      rv[k] = bf16(r[j0 + k]);
-      prev[k] = kBig;
-      sprev[k] = kNoWindow;
+      const int j = j0 + k;
+      if (j < n && (!BAND || abs(i - j) <= band) && L.prev[k] < L.best_v) {
+        L.best_v = L.prev[k];
+        L.best_j = j;
+        if (WINDOW) L.best_s = L.sprev[k];
+      }
     }
-    const float* rd = strip + (c & 1) * m;
-    float* wr = strip + ((c + 1) & 1) * m;
-    const int* srd = sstrip + (c & 1) * m;
-    int* swr = sstrip + ((c + 1) & 1) * m;
+  }
+  // my last cell is the left neighbour of lane+1's first cell next step
+  const float from_left = __shfl_up_sync(kFull, lft, 1);
+  int sfrom_left = 0;
+  if (WINDOW) sfrom_left = __shfl_up_sync(kFull, slft, 1);
+  if (io.writes && (!EDGE || (i >= 0 && i < m))) {
+    io.wr[u] = lft;
+    if (WINDOW) io.swr[u] = slft;
+  }
+  L.upleft = L.left;
+  L.supleft = L.sleft;
+  if (lane == 0) {
+    L.left = next_left;
+    if (WINDOW) L.sleft = next_sleft;
+  } else {
+    L.left = from_left;
+    if (WINDOW) L.sleft = sfrom_left;
+  }
+#if REPRO_STEP_SYNCWARP
+  // Kept from the one-warp kernel: without a per-step barrier nvcc 12.8
+  // (-O3, sm_90a) split that kernel's step loop into a copy for chunk 0
+  // and one for later chunks, and the chunk-0 copy stored lane 31's
+  // column at the wrong strip address.  scripts/wavefront_variants.py
+  // builds this file without it and times both (PERF.md §7).
+  __syncwarp();
+#endif
+}
 
-    // left / upleft of my first cell; lane 0 reads the strip (chunk > 0)
-    // or the column -1 edge sentinel
-    float left = (lane == 0 && c > 0) ? rd[0] : kBig;
-    float upleft = kBig;
-    int sleft = (WINDOW && lane == 0 && c > 0) ? srd[0] : kNoWindow;
-    int supleft = kNoWindow;
+// One link's ring: slot s holds a group of kGroup rows (f32, and i32 with
+// the start lane); bars[2s] is its full, bars[2s+1] its empty mbarrier.
+struct Ring {
+  float* v;
+  int* s;
+  uint64_t* bars;
+};
 
-    for (int t = 0; t < m + 31; ++t) {
-      const int i = t - lane;
-      const float qv = bf16(qb[min(max(i, 0), m - 1)]);
-      float lft = left, ul = upleft;
-      int slft = sleft, sul = supleft;
+// A position in a link's stream of groups, which fill the slots in turn:
+// the slot, and the parity of its use (flips each time round the ring).
+// A warp keeps four: the next group it waits for (full) and releases
+// (empty) on its input link, and the next it waits to fill (empty) and
+// publishes (full) on its output link.  Each advances once per group, in
+// stream order, across the warp's chunks.
+struct Cursor {
+  int slot = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance(int slots) {
+    if (++slot == slots) {
+      slot = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+template <int W, bool WINDOW, bool BAND, bool ABS>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1)
+wavefront_kernel(const float* __restrict__ q, const float* __restrict__ r,
+                 int m, int n, int chunks, int band, int slots,
+                 float* __restrict__ cost_out, int* __restrict__ end_out,
+                 int* __restrict__ start_out) {
+  // [warps][slots][2] mbarriers | query [m + 64] f32 | rings [warps]
+  // [slots * 32] f32 | (window) rings [warps][slots * 32] i32
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float fold_v[kMaxWarps];
+  __shared__ int fold_j[kMaxWarps], fold_s[kMaxWarps];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ring_rows = slots * kGroup;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* sq = reinterpret_cast<float*>(bars + 2 * warps * slots);
+  float* ring_v = sq + m + 2 * kQPad;
+  int* ring_s = reinterpret_cast<int*>(ring_v + warps * ring_rows);
+
+  const float* qb = q + static_cast<size_t>(blockIdx.x) * m;
+  for (int x = threadIdx.x; x < m + 2 * kQPad; x += blockDim.x) {
+    const int i = x - kQPad;
+    sq[x] = (i >= 0 && i < m) ? bf16(qb[i]) : 0.f;
+  }
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 2 * warps * slots; ++k) mbar_init(bars + k, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  auto ring = [&](int link) {
+    return Ring{ring_v + link * ring_rows,
+                WINDOW ? ring_s + link * ring_rows : nullptr,
+                bars + 2 * link * slots};
+  };
+  const Ring in = ring(warp), out = ring((warp + 1) % warps);
+  const int groups = (m + kGroup - 1) / kGroup;   // ring groups per chunk
+  Cursor in_wait, in_release, out_wait, out_publish;
+
+  Lane<W, WINDOW> L;
+  L.best_v = INFINITY;
+  L.best_j = 0;
+  L.best_s = kNoWindow;
+  StepIO io;
+  io.qrow = sq + kQPad + 1 - lane;
+
+  // consumer: wait for the next group's rows; producer: wait until the
+  // next group's slot was read in its previous use (passes at once for
+  // its first use)
+  auto take_in = [&]() {
+    mbar_wait(in.bars + 2 * in_wait.slot, in_wait.phase);
+    io.rd = in.v + in_wait.slot * kGroup;
+    if (WINDOW) io.srd = in.s + in_wait.slot * kGroup;
+    in_wait.advance(slots);
+  };
+  auto take_out = [&]() {
+    mbar_wait(out.bars + 2 * out_wait.slot + 1, out_wait.phase ^ 1u);
+    io.wr = out.v + out_wait.slot * kGroup;
+    if (WINDOW) io.swr = out.s + out_wait.slot * kGroup;
+    out_wait.advance(slots);
+  };
+  auto publish = [&]() {             // lane 31 stored the group's rows
+    if (lane == 31) mbar_arrive(out.bars + 2 * out_publish.slot);
+    out_publish.advance(slots);
+  };
+
+  for (int c = warp; c < chunks; c += warps) {
+    const bool has_in = c > 0, has_out = c + 1 < chunks;
+    io.reads = has_in && lane == 0;
+    io.writes = has_out && lane == 31;
+    const int j0 = (c * 32 + lane) * W;
 #pragma unroll
-      for (int k = 0; k < W; ++k) {
-        const int j = j0 + k;
-        const float d = bf16(__fsub_rn(qv, rv[k]));
-        const float cst = ABS ? fabsf(d) : bf16(__fmul_rn(d, d));
-        const float up = prev[k];
-        float val;
-        int s = 0;
-        if (i == 0) {
-          val = cst;                          // free start: D[-1, j] = 0
-          if (WINDOW) s = j;
-        } else {
-          val = bf16(__fadd_rn(cst, fminf(fminf(lft, up), ul)));
-          if (WINDOW) {
-            s = (up < lft) ? sprev[k] : slft;
-            s = (ul < fminf(lft, up)) ? sul : s;
-          }
-        }
-        if (BAND && abs(i - j) > band) {
-          val = kBig;                         // out of band: never folded
-          if (WINDOW) s = kNoWindow;
-        } else if (i == m - 1 && j < n && val < best_v) {
-          best_v = val;
-          best_j = j;
-          if (WINDOW) best_s = s;
-        }
-        ul = up;
-        prev[k] = val;
-        lft = val;
-        if (WINDOW) {
-          sul = sprev[k];
-          sprev[k] = s;
-          slft = s;
-        }
-      }
-      // my last cell is the left neighbour of lane+1's first cell next step
-      const float from_left = __shfl_up_sync(kFull, lft, 1);
-      int sfrom_left = 0;
-      if (WINDOW) sfrom_left = __shfl_up_sync(kFull, slft, 1);
-      if (lane == 31 && i >= 0 && i < m) {
-        wr[i] = lft;
-        if (WINDOW) swr[i] = slft;
-      }
-      upleft = left;
-      supleft = sleft;
-      if (lane == 0) {
-        const bool from_strip = c > 0 && t + 1 < m;
-        left = from_strip ? rd[t + 1] : kBig;
-        if (WINDOW) sleft = from_strip ? srd[t + 1] : kNoWindow;
-      } else {
-        left = from_left;
-        if (WINDOW) sleft = sfrom_left;
-      }
-      // Keep this barrier.  Without it nvcc 12.8 (-O3, sm_90a) split the
-      // step loop into a copy for chunk 0 and a copy for later chunks,
-      // and the chunk-0 copy stored lane 31's column at strip + i instead
-      // of strip + m + i (its SASS store address lacks the m term), so
-      // chunk 1 read stale shared memory: wrong, run-dependent results.
-      // With the barrier the loop stays one body and every instantiation
-      // matches the plain version (chip_smoke.py, phase 3).
-      __syncwarp();
+    for (int k = 0; k < W; ++k) {
+      L.rv[k] = bf16(r[j0 + k]);
+      L.prev[k] = kBig;
+      L.sprev[k] = kNoWindow;
     }
+    L.left = kBig;                          // column -1 edge sentinel
+    L.sleft = kNoWindow;
+    if (has_in) {
+      take_in();
+      __syncwarp();
+      if (lane == 0) {
+        L.left = io.rd[0];
+        if (WINDOW) L.sleft = io.srd[0];
+      }
+    }
+    L.upleft = kBig;
+    L.supleft = kNoWindow;
+    L.qv = sq[kQPad - lane];
+
+    // Blocks of 32 steps, block g holding steps t = 32g - 1 + u: lane 0
+    // reads row t+1 = 32g + u (consumer group g) and lane 31 writes row
+    // t-31 = 32(g-1) + u (producer group g-1), both at index u of their
+    // slots.  Block 0 starts at u = 1 (t = 0).  A block first releases
+    // what the previous one read and stored, then waits for its groups.
+    for (int g = 0; 32 * g - 1 < m + 31; ++g) {
+      const int t0 = 32 * g - 1;
+      if (g > 0) {
+        if (has_in) {
+          if (lane == 0) mbar_arrive(in.bars + 2 * in_release.slot + 1);
+          in_release.advance(slots);
+        }
+        if (has_out && g >= 2) publish();
+        if (has_in && g < groups) take_in();
+        if (has_out && g - 1 < groups) take_out();
+        __syncwarp();
+      }
+      if (g >= 2 && t0 + 31 < m - 1) {      // no row 0, no row m-1
+#pragma unroll 4
+        for (int u = 0; u < kGroup; ++u)
+          step<W, WINDOW, BAND, ABS, false>(L, t0 + u, u, lane, j0, m, n,
+                                            band, io);
+      } else {
+        const int u1 = min(kGroup, m + 31 - t0);
+        for (int u = g == 0 ? 1 : 0; u < u1; ++u)
+          step<W, WINDOW, BAND, ABS, true>(L, t0 + u, u, lane, j0, m, n,
+                                           band, io);
+      }
+    }
+    // the last group's rows are stored after the last block
+    if (has_out) publish();
     __syncwarp();
   }
 
-  // lexicographic (value, column) reduction: the earliest column wins
+  // lexicographic (value, column) merge: the earliest column wins, first
+  // across the lanes of each warp, then across the warps
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(kFull, best_v, off);
-    const int oj = __shfl_down_sync(kFull, best_j, off);
-    const int os = __shfl_down_sync(kFull, best_s, off);
-    if (ov < best_v || (ov == best_v && oj < best_j)) {
-      best_v = ov;
-      best_j = oj;
-      best_s = os;
+    const float ov = __shfl_down_sync(kFull, L.best_v, off);
+    const int oj = __shfl_down_sync(kFull, L.best_j, off);
+    const int os = __shfl_down_sync(kFull, L.best_s, off);
+    if (ov < L.best_v || (ov == L.best_v && oj < L.best_j)) {
+      L.best_v = ov;
+      L.best_j = oj;
+      L.best_s = os;
     }
   }
   if (lane == 0) {
-    cost_out[blockIdx.x] = best_v;
-    end_out[blockIdx.x] = best_j;
-    if (WINDOW) start_out[blockIdx.x] = best_s;
+    fold_v[warp] = L.best_v;
+    fold_j[warp] = L.best_j;
+    fold_s[warp] = L.best_s;
   }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float bv = fold_v[0];
+    int bj = fold_j[0], bs = fold_s[0];
+    for (int p = 1; p < warps; ++p) {
+      if (fold_v[p] < bv || (fold_v[p] == bv && fold_j[p] < bj)) {
+        bv = fold_v[p];
+        bj = fold_j[p];
+        bs = fold_s[p];
+      }
+    }
+    cost_out[blockIdx.x] = bv;
+    end_out[blockIdx.x] = bj;
+    if (WINDOW) start_out[blockIdx.x] = bs;
+  }
+}
+
+// Dynamic shared memory of one CTA; kernels/wavefront.py::hard_geometry
+// computes the same number.
+size_t smem_bytes(int m, int warps, int slots, bool window) {
+  const size_t ring = static_cast<size_t>(warps) * slots * kGroup;
+  return 16 * static_cast<size_t>(warps) * slots +
+         4 * (static_cast<size_t>(m) + 2 * kQPad) + (window ? 8 : 4) * ring;
 }
 
 template <int W, bool WINDOW, bool BAND, bool ABS>
 int launch(const float* q, const float* r, int batch, int m, int n,
-           int chunks, int band, float* cost, int* end, int* start,
-           cudaStream_t stream) {
-  const size_t smem = (WINDOW ? 4 : 2) * sizeof(float) * static_cast<size_t>(m);
+           int chunks, int band, int warps, int slots, float* cost, int* end,
+           int* start, cudaStream_t stream) {
+  const size_t smem = smem_bytes(m, warps, slots, WINDOW);
   auto kernel = wavefront_kernel<W, WINDOW, BAND, ABS>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -224,20 +495,40 @@ int launch(const float* q, const float* r, int batch, int m, int n,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<batch, 32, smem, stream>>>(q, r, m, n, chunks, band, cost, end,
-                                      start);
+  kernel<<<batch, 32 * warps, smem, stream>>>(q, r, m, n, chunks, band, slots,
+                                              cost, end, start);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int W, bool WINDOW, bool BAND, bool ABS>
+int occupancy(int m, int warps, int slots) {
+  const size_t smem = smem_bytes(m, warps, slots, WINDOW);
+  auto kernel = wavefront_kernel<W, WINDOW, BAND, ABS>;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return -static_cast<int>(err);
+  }
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      32 * warps, smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// op 0: launch; op 1: CTAs resident per SM (returned, or -error)
 template <int W>
-int dispatch(const float* q, const float* r, int batch, int m, int n,
-             int chunks, int band, int window, int abs_dist, float* cost,
-             int* end, int* start, cudaStream_t s) {
+int dispatch(int op, const float* q, const float* r, int batch, int m, int n,
+             int chunks, int band, int window, int abs_dist, int warps,
+             int slots, float* cost, int* end, int* start, cudaStream_t s) {
   const bool banded = band >= 0;
-#define REPRO_CASE(WIN, BND, ABSD)                                        \
-  if (!!window == WIN && banded == BND && !!abs_dist == ABSD)             \
-    return launch<W, WIN, BND, ABSD>(q, r, batch, m, n, chunks, band,     \
-                                     cost, end, start, s);
+#define REPRO_CASE(WIN, BND, ABSD)                                          \
+  if (!!window == WIN && banded == BND && !!abs_dist == ABSD)               \
+    return op == 0 ? launch<W, WIN, BND, ABSD>(q, r, batch, m, n, chunks,   \
+                                               band, warps, slots, cost,    \
+                                               end, start, s)               \
+                   : occupancy<W, WIN, BND, ABSD>(m, warps, slots);
   REPRO_CASE(false, false, false)
   REPRO_CASE(false, false, true)
   REPRO_CASE(false, true, false)
@@ -247,7 +538,37 @@ int dispatch(const float* q, const float* r, int batch, int m, int n,
   REPRO_CASE(true, true, false)
   REPRO_CASE(true, true, true)
 #undef REPRO_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  return op == 0 ? static_cast<int>(cudaErrorInvalidValue)
+                 : -static_cast<int>(cudaErrorInvalidValue);
+}
+
+int hard_entry(int op, const void* q, const void* r, int batch, int m, int n,
+               int chunks, int band, int width, int window, int abs_dist,
+               int warps, int slots, void* cost, void* end, void* start,
+               void* stream) {
+  const int bad = op == 0 ? static_cast<int>(cudaErrorInvalidValue)
+                          : -static_cast<int>(cudaErrorInvalidValue);
+  if (warps < 1 || warps > kMaxWarps || slots < 1) return bad;
+  const float* qf = static_cast<const float*>(q);
+  const float* rf = static_cast<const float*>(r);
+  float* c = static_cast<float*>(cost);
+  int* e = static_cast<int*>(end);
+  int* st = static_cast<int*>(start);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_WIDTH(WD)                                                     \
+  case WD:                                                                  \
+    return dispatch<WD>(op, qf, rf, batch, m, n, chunks, band, window,     \
+                        abs_dist, warps, slots, c, e, st, s);
+  switch (width) {
+    REPRO_WIDTH(2)
+    REPRO_WIDTH(4)
+    REPRO_WIDTH(8)
+    REPRO_WIDTH(14)
+    REPRO_WIDTH(16)
+    REPRO_WIDTH(32)
+    default: return bad;
+  }
+#undef REPRO_WIDTH
 }
 
 }  // namespace
@@ -256,28 +577,25 @@ extern "C" {
 
 // q: (batch, m) f32; r: (chunks_total * 32 * width,) f32, zero-padded past
 // n; the kernel visits the first `chunks` chunks.  band < 0: unbanded.
-// cost (batch,) f32, end (batch,) i32, start (batch,) i32 (window only).
-// Returns cudaGetLastError() (cudaErrorInvalidValue for a width with no
-// instantiation).
+// warps: warps per CTA (1..8); slots: ring groups of 32 rows per link
+// (kernels/wavefront.py::hard_geometry).  cost (batch,) f32, end (batch,)
+// i32, start (batch,) i32 (window only).  Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a width with no instantiation).
 int wavefront_launch(const void* q, const void* r, int batch, int m, int n,
                      int chunks, int band, int width, int window,
-                     int abs_dist, void* cost, void* end, void* start,
-                     void* stream) {
-  const float* qf = static_cast<const float*>(q);
-  const float* rf = static_cast<const float*>(r);
-  float* c = static_cast<float*>(cost);
-  int* e = static_cast<int*>(end);
-  int* st = static_cast<int*>(start);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (width) {
-    case 2: return dispatch<2>(qf, rf, batch, m, n, chunks, band, window, abs_dist, c, e, st, s);
-    case 4: return dispatch<4>(qf, rf, batch, m, n, chunks, band, window, abs_dist, c, e, st, s);
-    case 8: return dispatch<8>(qf, rf, batch, m, n, chunks, band, window, abs_dist, c, e, st, s);
-    case 14: return dispatch<14>(qf, rf, batch, m, n, chunks, band, window, abs_dist, c, e, st, s);
-    case 16: return dispatch<16>(qf, rf, batch, m, n, chunks, band, window, abs_dist, c, e, st, s);
-    case 32: return dispatch<32>(qf, rf, batch, m, n, chunks, band, window, abs_dist, c, e, st, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                     int abs_dist, int warps, int slots, void* cost,
+                     void* end, void* start, void* stream) {
+  return hard_entry(0, q, r, batch, m, n, chunks, band, width, window,
+                    abs_dist, warps, slots, cost, end, start, stream);
+}
+
+// CTAs of the instantiation resident per SM at this geometry, or a
+// negative CUDA error code.
+int wavefront_occupancy(int m, int width, int window, int banded,
+                        int abs_dist, int warps, int slots) {
+  return hard_entry(1, nullptr, nullptr, 0, m, 0, 0, banded ? 0 : -1, width,
+                    window, abs_dist, warps, slots, nullptr, nullptr,
+                    nullptr, nullptr);
 }
 
 }  // extern "C"

@@ -57,7 +57,7 @@ def validate(q: torch.Tensor, r_layout: torch.Tensor, extras: tuple, *,
              n: int, w: int, spec: DPSpec) -> None:
     """Shaped errors for plans and operands K7 does not take."""
     wavefront.check_plan(spec, kernel="family")
-    wavefront.validate(q, r_layout, n=n, w=w, with_window=False)
+    wavefront.validate(q, r_layout, n=n, w=w)
     names = EXTRA_INPUTS[spec.family]
     if len(extras) != len(names):
         raise ValueError(

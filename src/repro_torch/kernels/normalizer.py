@@ -1,5 +1,7 @@
-"""K2: the batch z-normalizer kernel (``csrc/normalizer.cu``), its plain
-PyTorch version, its launch counter, and its autograd wrapper.
+"""K2: the batch z-normalizer kernels (``csrc/normalizer.cu``: a
+one-warp-per-row kernel and a thread-block-cluster kernel for long
+rows), their geometry, their plain PyTorch version, their launch counter
+(by kernel), and their autograd wrapper.
 
 Replaces ``repro/kernels/normalizer.py::normalizer_pallas``.  A tensor
 on the CPU takes the plain version; a CUDA tensor launches the kernel or
@@ -13,13 +15,56 @@ differentiates the plain-jnp ``repro.core.normalize``).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 
 EPS = 1e-12
+ROW_MAX = 2048            # longest row the one-warp-per-row kernel takes
+ROWS_PER_CTA = 4          # kRowsPerCta in normalizer.cu
+CLUSTER_THREADS = 1024    # kClusterThreads
+MAX_CLUSTER = 8           # CTAs per row, the portable cluster size limit
+CLUSTER_VECS = (1, 2, 4, 8)
 counter = build.LaunchCounter("normalizer")
+
+
+class Geometry(NamedTuple):
+    """Launch geometry of K2 for (rows, n)."""
+    cluster: int      # 0: row kernel; else CTAs per row (a cluster)
+    vec: int          # float4s a lane (row) / a thread (cluster); 0: loop
+    threads: int      # per CTA
+    grid: int         # CTAs
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def geometry(rows: int, n: int) -> Geometry:
+    """K2's kernel and sizes (``normalizer_launch`` in normalizer.cu).
+
+    Rows of up to ROW_MAX samples: one warp per row, ROWS_PER_CTA rows a
+    CTA, ``vec`` float4s a lane (a power of two, 128 samples a float4
+    across the warp).  Longer rows: a cluster of ``cluster`` CTAs of
+    CLUSTER_THREADS per row, the fewest (a power of two, at most
+    MAX_CLUSTER) that hold the row at 4 float4s a thread, then the fewest
+    float4s a thread that hold it (vec 8 for rows past 8 x 1,024 x 16
+    samples, and 0, a loop that reads the slice twice, past 8 x 1,024 x
+    32)."""
+    if rows < 1 or n < 1:
+        raise ValueError(f"empty input of shape ({rows}, {n})")
+    if n <= ROW_MAX:
+        vec = _pow2_at_least(-(-n // (4 * 32)))
+        return Geometry(0, vec, 32 * ROWS_PER_CTA,
+                        -(-rows // ROWS_PER_CTA))
+    per_cta = 4 * 4 * CLUSTER_THREADS
+    cluster = min(MAX_CLUSTER, _pow2_at_least(-(-n // per_cta)))
+    vec = _pow2_at_least(-(-n // (cluster * 4 * CLUSTER_THREADS)))
+    if vec > max(CLUSTER_VECS):
+        vec = 0
+    return Geometry(cluster, vec, CLUSTER_THREADS, rows * cluster)
 
 
 def normalize_plain(x: torch.Tensor, *, eps: float = EPS,
@@ -40,18 +85,20 @@ def normalize_plain(x: torch.Tensor, *, eps: float = EPS,
 
 def normalize_cuda(x: torch.Tensor, *, eps: float = EPS,
                    with_stats: bool = False):
-    """Launch the K2 kernel: one CTA per row of (rows, n) float32 ``x``."""
+    """Launch the K2 kernel on (rows, n) float32 ``x`` (:func:`geometry`
+    picks the row or the cluster kernel)."""
     if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
         raise ValueError(
             f"the normalizer kernel takes a contiguous (rows, n) float32 "
             f"tensor, got {x.dtype} of shape {tuple(x.shape)}")
     if x.shape[0] == 0 or x.shape[1] == 0:
         raise ValueError(f"empty input of shape {tuple(x.shape)}")
+    geo = geometry(x.shape[0], x.shape[1])
     lib = build.library("normalizer")
     fn = lib.normalizer_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     y = torch.empty_like(x)
     stats = (torch.empty((x.shape[0], 2), dtype=torch.float32,
                          device=x.device) if with_stats else None)
@@ -59,9 +106,10 @@ def normalize_cuda(x: torch.Tensor, *, eps: float = EPS,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = fn(x.data_ptr(), y.data_ptr(),
                     0 if stats is None else stats.data_ptr(),
-                    x.shape[0], x.shape[1], eps, stream)
-    build.check(lib, status, "normalizer launch")
-    counter.add()
+                    x.shape[0], x.shape[1], eps, geo.cluster, geo.vec,
+                    stream)
+    build.check(lib, status, f"normalizer launch ({tuple(x.shape)}, {geo})")
+    counter.add("cluster" if geo.cluster else "rows")
     return (y, stats) if with_stats else y
 
 

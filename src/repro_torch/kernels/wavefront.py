@@ -14,12 +14,15 @@ plans:
   sweep of the soft-DTW backward (K6, ``checkpoint=True`` /
   ``reverse=True``).
 
-Geometry (the port's own, not the TPU's (8, 128) tiles): one warp per
-query; lane l of chunk c owns the ``w`` reference columns
-``(c * 32 + l) * w + k``.  The reference layout is the normalized
-reference zero-padded to a whole number of chunks; columns past the true
-length ``n`` are computed and never folded.  A reverse sweep reads the
-flipped reference left-padded to the same length
+Geometry (the port's own, not the TPU's (8, 128) tiles): lane l of
+chunk c owns the ``w`` reference columns ``(c * 32 + l) * w + k``; the
+soft kernels run one warp per query, the hard-min kernel one CTA of
+``warps`` warps per query, warp p sweeping chunks p, p + warps, ... and
+passing each chunk's right boundary column to the next warp through a
+shared-memory ring (:func:`hard_geometry`).  The reference layout is the
+normalized reference zero-padded to a whole number of chunks; columns
+past the true length ``n`` are computed and never folded.  A reverse
+sweep reads the flipped reference left-padded to the same length
 (:func:`prepare_reference_reverse`), so reverse chunk ``R-1-c`` covers
 forward chunk ``c``; its pad columns (original ``j >= n``) are masked to
 ``SOFT_BIG``.  A CPU tensor takes the plain version; a CUDA tensor
@@ -29,6 +32,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -39,6 +43,10 @@ from repro_torch.kernels import build
 WARP = 32
 WIDTHS = (2, 4, 8, 14, 16, 32)     # the instantiations in wavefront.cu
 SMEM_LIMIT = 232_448               # dynamic shared memory per block, H100
+WARPS = 8                          # hard-min kernel: warps per CTA (query)
+MAX_WARPS = 8                      # kMaxWarps in wavefront.cu
+RING_GROUP = 32                    # ring rows per full/empty mbarrier pair
+QUERY_PAD = 32                     # zeros each side of the staged query
 KERNEL_DISTANCES = ("sqeuclidean", "abs")
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 counter = build.LaunchCounter("wavefront")
@@ -111,9 +119,42 @@ def soft_geometry(m: int, n: int, n_pad: int, w: int, band: int | None,
     return 0, visited, n, 0
 
 
-def strip_bytes(m: int, with_window: bool) -> int:
-    """Shared memory of one warp: two strips of m f32 (+ two of i32)."""
-    return (4 if with_window else 2) * 4 * m
+def strip_bytes(m: int) -> int:
+    """Shared memory of the one-warp kernels (K5/K6, K7): two strips of
+    m f32."""
+    return 2 * 4 * m
+
+
+class HardGeometry(NamedTuple):
+    """Launch geometry of the hard-min kernel for one query length."""
+    warps: int        # warps per CTA; one CTA per query
+    slots: int        # ring groups of RING_GROUP rows, per link
+    ring_rows: int    # slots * RING_GROUP
+    smem_bytes: int   # dynamic shared memory per CTA
+
+
+def hard_geometry(m: int, with_window: bool,
+                  warps: int = WARPS) -> HardGeometry:
+    """Size the hard-min kernel's rings (``smem_bytes`` in wavefront.cu).
+
+    Consecutive chunks start about ``(m + 31) / warps`` steps apart, so a
+    link needs that many rows for no warp to wait, and the rings of the
+    CTA together one column of m rows: with much less, every warp can
+    end up waiting on a full ring (a deadlock).  Two groups a link are
+    added as slack; ``tests/test_torch_wavefront_design.py`` runs the
+    kernel's schedule on a model of the mbarriers and finds the smallest
+    ring that completes two groups below this one at m = 2,000.  Shared
+    memory: the mbarriers (16 bytes a slot and link), the query padded by
+    QUERY_PAD zeros on each side, and one ring per link (f32, plus i32
+    with the start lane)."""
+    if not 1 <= warps <= MAX_WARPS:
+        raise ValueError(f"warps={warps}: the hard-min kernel takes 1 to "
+                         f"{MAX_WARPS} warps per CTA")
+    slots = -(-(m + WARP - 1) // (RING_GROUP * warps)) + 2
+    ring_rows = slots * RING_GROUP
+    smem = (16 * warps * slots + 4 * (m + 2 * QUERY_PAD)
+            + (8 if with_window else 4) * warps * ring_rows)
+    return HardGeometry(warps, slots, ring_rows, smem)
 
 
 def plan_kernel(spec: DPSpec) -> str:
@@ -190,9 +231,11 @@ def check_plan(spec: DPSpec, *, kernel: str | None = None,
 
 
 def validate(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
-             with_window: bool) -> None:
+             hard: bool = False, with_window: bool = False) -> None:
     """Shaped errors for operands the kernels do not take (the plan's
-    own are :func:`check_plan`'s)."""
+    own are :func:`check_plan`'s).  ``hard``: the launch is the hard-min
+    kernel's (its rings, :func:`hard_geometry`), else a one-warp
+    kernel's (its strips, :func:`strip_bytes`)."""
     if w not in WIDTHS:
         raise ValueError(
             f"segment_width={w} has no wavefront kernel instantiation; "
@@ -219,11 +262,14 @@ def validate(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
     if q.device != r_layout.device:
         raise ValueError(f"queries on {q.device}, reference layout on "
                          f"{r_layout.device}")
-    if strip_bytes(q.shape[1], with_window) > SMEM_LIMIT:
+    m = q.shape[1]
+    smem_bytes = (hard_geometry(m, with_window).smem_bytes if hard
+                  else strip_bytes(m))
+    if smem_bytes > SMEM_LIMIT:
         raise ValueError(
-            f"query length m={q.shape[1]} needs "
-            f"{strip_bytes(q.shape[1], with_window)} bytes of boundary "
-            f"strip, over the {SMEM_LIMIT} a block can have")
+            f"query length m={q.shape[1]} needs {smem_bytes} bytes of "
+            f"shared memory per block, over the {SMEM_LIMIT} a block can "
+            f"have")
 
 
 def wavefront_plain(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
@@ -239,33 +285,64 @@ def wavefront_plain(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
                        compute_dtype=compute_dtype)
 
 
+def _hard_fn(lib: ctypes.CDLL, name: str):
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    if name == "wavefront_launch":
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p] * 4)
+    else:
+        fn.argtypes = [ctypes.c_int] * 7
+    return fn
+
+
+def hard_library(compute_dtype=torch.float32) -> ctypes.CDLL:
+    """The hard-min library of a compute type (bf16-K1's for bfloat16)."""
+    return build.library("wavefront_bf16" if compute_dtype == torch.bfloat16
+                         else "wavefront")
+
+
+def hard_occupancy(m: int, w: int, *, with_window: bool = False,
+                   warps: int = WARPS) -> int:
+    """CTAs of the (float32, unbanded, sqeuclidean) hard-min kernel
+    resident per SM at this geometry
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; card only)."""
+    geo = hard_geometry(m, with_window, warps)
+    lib = hard_library()
+    blocks = _hard_fn(lib, "wavefront_occupancy")(
+        m, w, int(with_window), 0, 0, geo.warps, geo.slots)
+    if blocks < 0:
+        build.check(lib, -blocks, f"wavefront occupancy (w={w}, m={m})")
+    return blocks
+
+
 def wavefront_cuda(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
                    w: int, spec: DPSpec, with_window: bool = False,
-                   compute_dtype=torch.float32):
-    """Launch the kernel: one warp per query.  The float32 operands are
-    rounded to bf16 on load by the bf16 build."""
+                   compute_dtype=torch.float32, warps: int = WARPS,
+                   lib: ctypes.CDLL | None = None):
+    """Launch the kernel: one CTA of ``warps`` warps per query.  The
+    float32 operands are rounded to bf16 on load by the bf16 build.
+    ``lib``: another build of the hard-min source (default: the
+    library of ``compute_dtype``)."""
     B, m = q.shape
     chunks = band_grid_chunks(m, spec.band,
                               r_layout.shape[0] // chunk_cols(w), w)
+    geo = hard_geometry(m, with_window, warps)
     cost = torch.empty((B,), dtype=torch.float32, device=q.device)
     end = torch.empty((B,), dtype=torch.int32, device=q.device)
     start = torch.empty((B if with_window else 1,), dtype=torch.int32,
                         device=q.device)
-    bf16 = compute_dtype == torch.bfloat16
-    lib = build.library("wavefront_bf16" if bf16 else "wavefront")
-    fn = lib.wavefront_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p] * 4)
+    lib = lib if lib is not None else hard_library(compute_dtype)
+    fn = _hard_fn(lib, "wavefront_launch")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), r_layout.data_ptr(), B, m, n, chunks,
                     -1 if spec.band is None else int(spec.band), w,
                     int(with_window), int(spec.distance == "abs"),
-                    cost.data_ptr(), end.data_ptr(), start.data_ptr(),
-                    stream)
+                    geo.warps, geo.slots, cost.data_ptr(), end.data_ptr(),
+                    start.data_ptr(), stream)
     build.check(lib, status, f"wavefront launch (w={w}, B={B}, m={m}, "
-                             f"{compute_dtype})")
+                             f"warps={geo.warps}, {compute_dtype})")
     counter.add(variant(spec, with_window, compute_dtype))
     if with_window:
         return cost, start, end
@@ -283,7 +360,7 @@ def wavefront(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
     clamps them)."""
     check_plan(spec, kernel="hard", compute_dtype=compute_dtype,
                with_window=with_window)
-    validate(q, r_layout, n=n, w=w, with_window=with_window)
+    validate(q, r_layout, n=n, w=w, hard=True, with_window=with_window)
     if build.on_card(q):
         return wavefront_cuda(q, r_layout, n=n, w=w, spec=spec,
                               with_window=with_window,
@@ -449,7 +526,7 @@ def soft_wavefront(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
     """The K5 wrapper: soft cost and hard end of each query (end a raw
     column; ``repro_torch.kernels.ops`` clamps it)."""
     check_plan(spec, kernel="soft")
-    validate(q, r_layout, n=n, w=w, with_window=False)
+    validate(q, r_layout, n=n, w=w)
     if build.on_card(q):
         return soft_cuda(q, r_layout, n=n, w=w, spec=spec)
     return soft_plain(q, r_layout, n=n, w=w, spec=spec)
@@ -465,7 +542,7 @@ def soft_checkpoint(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
     flipped argmin column, and the B strips of the visited flipped
     chunks, in flipped row order."""
     check_plan(spec, kernel="soft", reverse=reverse, checkpoint=True)
-    validate(q, r_layout, n=n, w=w, with_window=False)
+    validate(q, r_layout, n=n, w=w)
     if build.on_card(q):
         return soft_cuda(q, r_layout, n=n, w=w, spec=spec, reverse=reverse,
                          checkpoint=True)

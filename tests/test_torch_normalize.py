@@ -82,3 +82,21 @@ def test_kernel_matches_plain_on_card(cuda, shape):
     assert normalizer.counter.count == before + 1
     torch.testing.assert_close(got, normalizer.normalize_plain(x),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 513])
+@pytest.mark.parametrize("n", [1, 31, 2001, 100_000, 100_003, 300_003])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kernel_at_ragged_lengths_on_card(cuda, rows, n, offset):
+    """Rows whose starts are not 16-byte aligned (n not a multiple of 4,
+    or a view one float into its buffer), the row and cluster kernels
+    (300,003 samples: the cluster kernel that reads its slice twice),
+    with the (mean, var) the backward reads."""
+    flat = torch.from_numpy(_data((rows * n + offset,), seed=n)).to(cuda)
+    x = flat[offset:].view(rows, n)
+    y, stats = normalizer.normalize_cuda(x, with_stats=True)
+    want, want_stats = normalizer.normalize_plain(x, with_stats=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(stats, want_stats, atol=1e-5, rtol=1e-5)

@@ -223,6 +223,34 @@ def test_kernel_bit_equal_to_plain_on_card(cuda, b, m, n, band, window):
             assert torch.equal(a, b_), (w, a[:4], b_[:4])
 
 
+def chunk_count_lengths(w, warps=wavefront.WARPS):
+    """Reference lengths giving 1, P-1, P, P+1 and 2P+1 chunks of
+    ``32 * w`` columns (P warps per CTA), each last chunk partly pad."""
+    W = wavefront.chunk_cols(w)
+    return [(k - 1) * W + W // 2 + 3
+            for k in (1, warps - 1, warps, warps + 1, 2 * warps + 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 33])
+@pytest.mark.parametrize("window", [False, True])
+def test_kernel_bit_equal_at_every_chunk_count_on_card(cuda, m, window):
+    """Chunks fewer than, equal to and one more than the warps of a CTA,
+    and 2P+1: idle warps, a ring that wraps, m below one ring group."""
+    for w in wavefront.WIDTHS:
+        for n in chunk_count_lengths(w):
+            q, r = (torch.from_numpy(x).to(cuda)
+                    for x in _inputs(3, m, n, seed=n))
+            lay = wavefront.prepare_reference(r, w)
+            want = wavefront.wavefront_plain(q, lay, n=n, w=w, spec=DPSpec(),
+                                             with_window=window)
+            got = wavefront.wavefront(q, lay, n=n, w=w, spec=DPSpec(),
+                                      with_window=window)
+            torch.cuda.synchronize()
+            for a, b_ in zip(got, want):
+                assert torch.equal(a, b_), (w, n, a[:3], b_[:3])
+
+
 @pytest.mark.gpu
 def test_exact_tie_on_card(cuda):
     q, r = _inputs(1, 10, 200, seed=3)
