@@ -8,7 +8,8 @@ NVIDIA H100.
 
 Phases, one JSON line each:
   1. the card (``nvidia-smi`` name and power limit) and the kernel build
-     (``nvcc -Xptxas -v``: registers and spills per instantiation);
+     (``nvcc -Xptxas -v``: registers and spills per instantiation; no
+     soft K7 instantiation may spill);
   2. K2 (its row and cluster kernels) against its plain version on the
      PAPER query batch (512, 2000) and reference (100,000,), and at 1 and
      513 rows of 1, 31, 2,001, 100,000, 100,003 and 300,003 samples, each
@@ -29,8 +30,9 @@ Phases, one JSON line each:
      path (``repro_torch.sdtw(..., band=900)``, K4) on the same data,
      its counts read on their own, bit for bit against the plain version;
   5. ``geometry`` (warps per CTA, ring rows, shared memory per CTA, CTAs
-     resident per SM of K1 and K3 at PAPER; K2's kernel, cluster size and
-     grid) and ``times``: CUDA events (warm) for K1 and K3 at PAPER, every
+     resident per SM of K1, K3 and soft K7 (twed, erp, local; with its
+     registers) at PAPER; K2's kernel, cluster size and grid) and
+     ``times``: CUDA events (warm) for K1 and K3 at PAPER, every
      width, and a warm ``Aligner`` call; device time from a CUDA graph
      of 20 launches for the small kernels (K4, K2 on the batch and on the
      reference, K2's plain version and its yardstick
@@ -65,13 +67,16 @@ Phases, one JSON line each:
      distances; every width) against its plain version on references of
      three chunks whose last chunk is partly padding, unbanded and
      banded: hard bit for bit, soft within atol = rtol = 1e-4, ends
-     equal; a blocked corner answered with no launch;
+     equal; a blocked corner answered with no launch; soft twed, erp and
+     local on references of 1, P-1, P, P+1 and 2P+1 chunks (P warps per
+     CTA) at widths 2 and 8, m 1, 33 and 200;
  12. ``family_main_path``: each family x reduction at full PAPER width
      through ``repro_torch.sdtw`` and an ``Aligner``, launch counts read
      on their own, costs finite, corner ends n - 1, planted local ends
      counted, each held to K7's plain version at PAPER's M and N (hard
      local on all 512 queries, the other five on every 8th);
- 13. ``family_times``: K7 at PAPER per family and reduction, bounds;
+ 13. ``family_times``: K7 at PAPER per family and reduction, bounds,
+     the one-warp K7's times of record beside;
  14. ``bf16``: bf16-K1 against its plain version bit for bit (every
      width, band, distance, with and without the start lane; and at
      PAPER through ``ops.sdtw_wavefront(compute_dtype=bfloat16)``), the
@@ -146,6 +151,12 @@ FAMILY_OPS = {  # (variant, family) -> (FP32, MUFU) a cell
     ("K7-cells", "local"): (11, 0),
     ("K7-soft-corner", "twed"): (21, 3), ("K7-soft-corner", "erp"): (15, 3),
     ("K7-soft-cells", "local"): (27, 6)}
+# K7 at PAPER at one warp per query, before soft K7 ran several warps per
+# query (ms, the times of record in PERF.md, "NVIDIA H100 80GB HBM3,
+# 700.00 W"), printed beside this run's times
+K7_ONE_WARP_MS = {("twed", False): 159.07, ("erp", False): 142.95,
+              ("local", False): 326.81, ("twed", True): 759.83,
+              ("erp", True): 743.66, ("local", True): 1438.88}
 # bf16-K1: the function is K1's 5 operations (sub, mul, min, min, add) in
 # bf16.  The H100 issues them packed, two bf16 elements per FP32 lane per
 # clock (HADD2/HMUL2/HMNMX2.BF16: NVIDIA's H100 data gives its non-tensor
@@ -848,11 +859,45 @@ def family_parity(c) -> None:
                             f"blocked {spec.describe()} launched or "
                             f"answered wrong")
                     blocked += 1
+    # soft K7's CTA of P warps at 1, P-1, P, P+1 and 2P+1 chunks (idle
+    # warps, a ring that wraps), m 1, 33 and 200; one plain version per
+    # reference
+    P = wavefront.WARPS
+    chunk_cases = 0
+    for fam in ("twed", "erp", "local"):
+        spec = family_spec(fam, True)
+        for w in ((2, 8) if c.cuda else (2,)):
+            W = wavefront.chunk_cols(w)
+            for m in (1, 33, 200):
+                for k in (1, P - 1, P, P + 1, 2 * P + 1):
+                    n_c = (k - 1) * W + W // 2 + 3
+                    q, r = series(3, m), series(n_c)
+                    lay = ops.prepare_reference(r, w)
+                    ex = ops.family_extras(spec, q, r, segment_width=w)
+                    want = family.family_plain(q, lay, ex, n=n_c, w=w,
+                                               spec=spec)
+                    got = family.family_wavefront(q, lay, ex, n=n_c, w=w,
+                                                  spec=spec)
+                    c.sync()
+                    err = float((got[0] - want[0]).abs().max())
+                    worst["soft"] = max(worst["soft"], err)
+                    checked += 1
+                    chunk_cases += 1
+                    if not (torch.equal(got[1], want[1]) and bool(
+                            torch.allclose(got[0], want[0], rtol=1e-4,
+                                           atol=1e-4))):
+                        mismatches += 1
+                        emit({"phase": "family_mismatch", "w": w,
+                              "spec": spec.describe(), "B": 3, "m": m,
+                              "n": n_c, "chunks": k,
+                              "got": [x.tolist() for x in got],
+                              "want": [x.tolist() for x in want]})
     launches = {k: v - before.get(k, 0)
                 for k, v in family.counter.by_variant.items()}
     emit({"phase": "family_parity", "rule": "hard bit-equal to the plain "
           "version, soft within atol=rtol=1e-4, ends equal",
           "n": n, "widths": list(widths), "cases": checked,
+          "soft_chunk_count_cases": chunk_cases, "warps_per_cta": P,
           "mismatches": mismatches, "worst_abs_err": worst,
           "blocked_corner_cases_no_launch": blocked, "launches": launches})
     require(mismatches == 0, f"{mismatches} K7 cases differ from the "
@@ -988,6 +1033,7 @@ def family_times(c, fm: dict) -> dict:
                                mufu * cells)
         rows[(fam, soft)] = {
             "spec": spec.describe(), "variant": var, "ms": ms,
+            "one_warp_ms": K7_ONE_WARP_MS[(fam, soft)],
             "ms_at_plain_shape": ms_p, "plain_ms": info["plain_ms"],
             "plain_shape": info["plain_shape"], "bound_ms": bound,
             "bound_by": by, "fp32_ops_a_cell": fp32,
@@ -996,6 +1042,8 @@ def family_times(c, fm: dict) -> dict:
           else "host clock (cpu rehearsal, not a device number)",
           "paper": {"batch": B, "query_len": m, "ref_len": n,
                     "segment_width": w},
+          "one_warp_ms": "K7 at one warp per query, PERF.md's times of "
+                         "record (NVIDIA H100 80GB HBM3, 700.00 W)",
           "rows": list(rows.values())})
     return rows
 
@@ -1121,7 +1169,7 @@ def main(argv=None) -> int:
     from repro_torch.core.normalize import normalize_batch
     from repro_torch.core.ref import sdtw_numpy
     from repro_torch.core.spec import DPSpec
-    from repro_torch.kernels import build, normalizer, ops, wavefront
+    from repro_torch.kernels import build, family, normalizer, ops, wavefront
 
     cuda = not args.cpu
     dev = torch.device("cuda" if cuda else "cpu")
@@ -1141,6 +1189,7 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0) if cuda else "cpu",
           "config": "PAPER" if cuda else "SMALL"})
+    ptxas = {}
     if cuda:
         t0 = time.perf_counter()
         logs = build.build_all()
@@ -1149,7 +1198,8 @@ def main(argv=None) -> int:
         out_dir = Path(__file__).resolve().parent / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "ptxas.json").write_text(json.dumps(ptxas, indent=1))
-        emit({"phase": "build", "seconds": seconds, "built": sorted(logs),
+        emit({"phase": "build", "seconds": seconds,
+              "libraries": sorted(logs),
               "ptxas_by_library": {
                   name: {"instantiations": len(rows),
                          "registers_max": max(r.get("registers", 0)
@@ -1159,6 +1209,16 @@ def main(argv=None) -> int:
                                             for r in rows)}
                   for name, rows in ptxas.items()},
               "ptxas_table": "chiprun_out/ptxas.json"})
+        # every instantiation of soft K7 (6 widths x 3 families x band x
+        # distance) reports, and none spills
+        soft_k7 = [r for r in ptxas.get("soft_family_wavefront", [])
+                   if "family" in r]
+        require(len(soft_k7) == 72,
+                f"ptxas reports {len(soft_k7)} soft K7 instantiations, "
+                f"not 72")
+        require(all(r.get("spill_stores", 0) + r.get("spill_loads", 0) == 0
+                    for r in soft_k7),
+                "a soft K7 instantiation spills registers")
 
     queries_np, ref_np, planted = make_data(np, cfg, args.seed)
     q_raw = torch.from_numpy(queries_np).to(dev)
@@ -1479,6 +1539,17 @@ def main(argv=None) -> int:
             "ring_groups": geo.slots, "smem_bytes_per_cta": geo.smem_bytes,
             "ctas": B, "ctas_resident_per_sm": wavefront.hard_occupancy(
                 m, w, with_window=win) if cuda else None}
+    soft_k7_regs = {(r.get("family"), r.get("w")): r.get("registers")
+                    for r in ptxas.get("soft_family_wavefront", [])
+                    if not r.get("band") and not r.get("abs")}
+    for fam in ("twed", "erp", "local"):
+        geo = family.family_geometry(m, fam)
+        geometry[f"K7-soft {fam}"] = {
+            "warps_per_cta": geo.warps, "ring_rows": geo.ring_rows,
+            "ring_groups": geo.slots, "smem_bytes_per_cta": geo.smem_bytes,
+            "registers": soft_k7_regs.get((fam, w)), "ctas": B,
+            "ctas_resident_per_sm": family.family_occupancy(m, w, fam)
+            if cuda else None}
     for label in ("queries", "reference"):
         geo = k2[label]["geometry"]
         geometry[f"K2 {label}"] = {

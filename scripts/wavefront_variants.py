@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the hard-min wavefront kernel's design choices on one CUDA card.
+"""Time the multi-warp wavefront kernels' design choices on one CUDA card.
 
     python3 scripts/wavefront_variants.py [--seed 0] [--reps 3]
 
@@ -16,6 +16,18 @@ segment width 8), with CUDA events, warm:
 And from the SASS of the built library (``cuobjdump -sass``), the
 steady step loop of K1 and K3 at width 8: its instructions, the steps it
 unrolls (two mins a cell) and the instructions a step.
+The soft-min K7 (``csrc/family_wavefront.cu``, twed / erp / local at
+gamma 0.7, chip_smoke's parameters), at the same workload:
+  * 1, 2, 4 and 8 warps per CTA at width 8, and 4 and 8 warps at every
+    other width, with the CTAs resident per SM; every output within
+    atol = rtol = 1e-4 of the default geometry's, ends equal;
+  * the MUFU ``ex2.approx`` / ``lg2.approx`` soft-min (as built) against
+    CUDA's full-accuracy ``exp2f`` / ``log2f``
+    (``-DREPRO_EXACT_SOFTMIN``): both held to the plain version on 1 to
+    2P+1 chunks, then timed in turns (as built, exact, exact, as built),
+    and their PAPER costs compared;
+  * the steady loop of the as-built and exact builds at width 8 from the
+    SASS: its instructions a step and its MUFU operations a step.
 Prints one JSON line per measurement and the card's ``nvidia-smi`` name
 and power limit; writes the lot to ``chiprun_out/wavefront_variants.json``.
 Needs a card: exits 1 without one.
@@ -33,35 +45,155 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 NO_SYNC = ("-DREPRO_STEP_SYNCWARP=0",)
+EXACT = ("-DREPRO_EXACT_SOFTMIN",)
 
 
-def steady_loop(sass: str, entry: str, w: int) -> dict:
-    """The loop of ``entry`` that issues the fewest instructions per
-    step (a step of w cells issues 2w FMNMX), the steady step loop: its
-    length, the steps it unrolls, its instructions a step and opcodes."""
+def steady_loop(sass: str, entry: str, marker: str = "FMNMX",
+                per_step: int | None = None) -> dict:
+    """The steady step loop of ``entry``: among its innermost loops (a
+    backward branch whose range holds no other loop's branch), the one
+    that issues the fewest instructions per ``marker`` opcode (FMNMX for
+    the hard-min kernel, MUFU for soft K7).  Its length, the steps it
+    unrolls (``per_step`` markers a step, 2w FMNMX for the hard-min
+    kernel; else one SHFL a step), its instructions and MUFU operations
+    a step, and its opcodes."""
     body = next(f for f in re.split(r"\n\s*Function : ", sass)
                 if f.split("\n", 1)[0].strip() == entry)
     ins = [(int(a, 16), t.strip()) for a, t in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
     index = {a: i for i, (a, _) in enumerate(ins)}
-    loops = []
+    spans = []
     for i, (a, t) in enumerate(ins):
         hit = re.search(r"BRA[^0-9]*0x([0-9a-f]+)", t)
         if hit and int(hit.group(1), 16) < a and int(hit.group(1), 16) \
                 in index:
-            loop = ins[index[int(hit.group(1), 16)]:i + 1]
-            ops = collections.Counter(
-                re.sub(r"^@!?U?P\w+\s+", "", x).split()[0].split(".")[0]
-                for _, x in loop)
-            if ops["FMNMX"] >= 2 * w:
-                loops.append((len(loop), ops))
-    size, ops = min(loops, key=lambda x: x[0] / x[1]["FMNMX"])
-    steps = ops["FMNMX"] // (2 * w)
+            spans.append((index[int(hit.group(1), 16)], i))
+    loops = []
+    for lo, hi in spans:
+        if any(lo < h < hi for _, h in spans):
+            continue                        # holds an inner loop
+        ops = collections.Counter(
+            re.sub(r"^@!?U?P\w+\s+", "", x).split()[0].split(".")[0]
+            for _, x in ins[lo:hi + 1])
+        if ops[marker] >= (per_step or 1) and ops["SHFL"]:
+            loops.append((hi + 1 - lo, ops))
+    size, ops = min(loops, key=lambda x: x[0] / x[1][marker])
+    steps = ops[marker] // per_step if per_step else ops["SHFL"]
     return {"instructions": size, "steps_unrolled": steps,
             "instructions_per_step": size / steps,
+            "mufu_per_step": ops["MUFU"] / steps,
             "opcodes": dict(ops.most_common(8))}
+
+
+def soft_k7(log: list, q, r, series, timed) -> int:
+    """The soft K7 section (see the module docstring).  Returns the
+    number of parity mismatches."""
+    import torch
+    from chip_smoke import FAMILY_GAMMA, FAMILY_PARAMS
+    from repro_torch.configs.paper_sdtw import PAPER
+    from repro_torch.core.spec import resolve_spec
+    from repro_torch.kernels import build, family, ops, wavefront
+    exact = build.library("soft_family_wavefront", EXACT)
+    w, m, n, B = PAPER.segment_width, PAPER.query_len, PAPER.ref_len, \
+        PAPER.batch
+    P = wavefront.WARPS
+
+    def spec_of(fam):
+        return resolve_spec(None, family=fam, reduction="softmin",
+                            gamma=FAMILY_GAMMA, **FAMILY_PARAMS[fam])
+
+    def close(a, b):
+        return torch.equal(a[1], b[1]) and bool(
+            torch.allclose(a[0], b[0], rtol=1e-4, atol=1e-4))
+
+    # the soft-min builds against the plain version, 1 to 2P+1 chunks
+    mismatches = cases = 0
+    for fam in ("twed", "erp", "local"):
+        spec = spec_of(fam)
+        for mm in (33, 200):
+            for k in (1, P + 1, 2 * P + 1):
+                nn = (k - 1) * 64 + 35               # w 2: 64 columns
+                qq, rr = series(3, mm), series(nn)
+                lay = ops.prepare_reference(rr, 2)
+                ex = ops.family_extras(spec, qq, rr, segment_width=2)
+                want = family.family_plain(qq, lay, ex, n=nn, w=2,
+                                           spec=spec)
+                for lib in (None, exact):
+                    got = family.family_cuda(qq, lay, ex, n=nn, w=2,
+                                             spec=spec, lib=lib)
+                    torch.cuda.synchronize()
+                    cases += 1
+                    mismatches += not close(got, want)
+    emit({"phase": "soft_k7_parity",
+          "builds": ["as built", "exact"],
+          "cases": cases, "mismatches": mismatches,
+          "rule": "within atol=rtol=1e-4 of the plain version, ends equal"},
+         log)
+
+    lay = ops.prepare_reference(r, w)
+    for fam in ("twed", "erp", "local"):
+        spec = spec_of(fam)
+        ex = ops.family_extras(spec, q, r, segment_width=w)
+        ref = family.family_cuda(q, lay, ex, n=n, w=w, spec=spec)
+        for warps in (1, 2, 4, 8):
+            out = family.family_cuda(q, lay, ex, n=n, w=w, spec=spec,
+                                     warps=warps)
+            torch.cuda.synchronize()
+            geo = family.family_geometry(m, fam, warps)
+            emit({"phase": "soft_k7_warps", "family": fam, "w": w,
+                  "warps": warps, "ms": timed(lambda: family.family_cuda(
+                      q, lay, ex, n=n, w=w, spec=spec, warps=warps), 2),
+                  "ring_rows": geo.ring_rows, "smem_bytes": geo.smem_bytes,
+                  "ctas_per_sm": family.family_occupancy(m, w, fam, warps),
+                  "close_to_default": close(out, ref)}, log)
+        for ww in wavefront.WIDTHS:
+            if ww == w:
+                continue
+            wlay = ops.prepare_reference(r, ww)
+            wex = ops.family_extras(spec, q, r, segment_width=ww)
+            row = {"phase": "soft_k7_width", "family": fam, "w": ww}
+            for warps in (4, 8):
+                out = family.family_cuda(q, wlay, wex, n=n, w=ww, spec=spec,
+                                         warps=warps)
+                torch.cuda.synchronize()
+                row[f"ms_{warps}_warps"] = timed(
+                    lambda: family.family_cuda(q, wlay, wex, n=n, w=ww,
+                                               spec=spec, warps=warps), 2)
+                row[f"ctas_per_sm_{warps}_warps"] = family.family_occupancy(
+                    m, ww, fam, warps)
+                row[f"close_to_w{w}_{warps}_warps"] = close(out, ref)
+            emit(row, log)
+        times = {"built": [], "exact": []}
+        for which in ("built", "exact", "exact", "built"):
+            lib = exact if which == "exact" else None
+            times[which].append(timed(lambda: family.family_cuda(
+                q, lay, ex, n=n, w=w, spec=spec, lib=lib), 2))
+        out = family.family_cuda(q, lay, ex, n=n, w=w, spec=spec, lib=exact)
+        torch.cuda.synchronize()
+        diff = (out[0] - ref[0]).abs()
+        emit({"phase": "soft_k7_softmin", "family": fam, "w": w,
+              "built_ms": times["built"], "exact_ms": times["exact"],
+              "max_abs_diff": float(diff.max()),
+              "max_rel_diff": float((diff / out[0].abs()).max()),
+              "ends_equal": int((out[1] == ref[1]).sum()), "queries": B},
+             log)
+
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    for label, extra in (("as built", ()), ("exact", EXACT)):
+        lib_path = build._target("soft_family_wavefront", extra)[0]
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for code, fam in enumerate(("twed", "erp", "local")):
+            entry = next(
+                e for e in re.findall(r"Function : (\S+)", sass)
+                if f"soft_family_kernelILi8ELi{code}ELb0ELb0E" in e)
+            emit({"phase": "soft_k7_sass", "build": label, "family": fam,
+                  "w": 8, **steady_loop(sass, entry, "MUFU")}, log)
+    return mismatches
 
 
 def emit(obj, log: list) -> None:
@@ -89,6 +221,10 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     emit({"nvidia_smi": smi}, log)
+    # the two variant builds, side by side
+    build._compile({
+        "nosync": build._target("wavefront", NO_SYNC),
+        "exact": build._target("soft_family_wavefront", EXACT)})
     nosync = build.library("wavefront", NO_SYNC)
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
@@ -201,13 +337,15 @@ def main(argv=None) -> int:
         entry = next(e for e in re.findall(r"Function : (\S+)", sass)
                      if f"wavefront_kernelILi8ELb{window}ELb0ELb0E" in e)
         emit({"phase": "sass", "kernel": name, "w": 8,
-              **steady_loop(sass, entry, 8)}, log)
+              **steady_loop(sass, entry, "FMNMX", 16)}, log)
+
+    soft_mismatches = soft_k7(log, q, r, series, timed)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "wavefront_variants.json").write_text(json.dumps(log,
                                                                 indent=1))
-    return 0 if mismatches == 0 else 1
+    return 0 if mismatches == 0 and soft_mismatches == 0 else 1
 
 
 if __name__ == "__main__":

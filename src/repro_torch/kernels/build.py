@@ -5,12 +5,14 @@ Each library is one ``csrc/*.cu`` source compiled by ``nvcc`` for
 headers, so a build takes seconds, not minutes); ``wavefront.cu`` gives
 three, its hard-min half, the same under ``-DREPRO_BF16`` (bf16-K1) and,
 under ``-DREPRO_SOFT``, its soft-min half; ``family_wavefront.cu`` (K7)
-gives two, hard-min and ``-DREPRO_SOFT``.
-Every library is compiled by its own ``nvcc`` process, all started
-together.  Libraries go to
-``build/repro_torch/`` at the repository root, named by a hash of the
-source, the flags and ``nvcc --version``, so neither an edited source
-nor another compiler is ever served by a stale library.  A failed build raises; nothing falls back.
+gives two, hard-min and ``-DREPRO_SOFT``; both sources include
+``csrc/ring.cuh``.  Every library is compiled by its own ``nvcc``
+process, all started together.  Libraries go to ``build/repro_torch/``
+at the repository root, named by a hash of the source, the headers, the
+flags and ``nvcc --version``, so neither an edited source nor another
+compiler is ever served by a stale library; ptxas's report (registers and
+spills, ``-Xptxas -v``) is kept beside each as ``.ptxas``.  A failed
+build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -99,27 +101,35 @@ def _target(name: str, extra: tuple = ()) -> tuple[Path, Path, list[str]]:
     source, flags0 = TARGETS[name]
     src = CSRC / source
     flags = ARCH + COMMON + flags0 + list(extra)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
+    # the headers every source may include (csrc/ring.cuh) are hashed too
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(flags).encode()
                             + _nvcc_version().encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so", src, flags
 
 
+def _report(out: Path) -> Path:
+    return out.with_suffix(".ptxas")
+
+
 def _compile(jobs: dict) -> dict[str, str]:
-    """Compile every job (key -> (out, src, flags)) whose library does
-    not exist yet, one ``nvcc`` each, all in parallel.  Returns key ->
-    ptxas report of the builds made now; raises with nvcc's output if
-    any fails."""
+    """Compile every job (key -> (out, src, flags)) whose library or
+    ptxas report does not exist yet, one ``nvcc`` each, all in parallel.
+    Returns key -> ptxas report of every job, built now or before;
+    raises with nvcc's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, logs = {}, {}
     for key, (out, src, flags) in jobs.items():
-        if out.exists():
+        if out.exists() and _report(out).exists():
+            logs[key] = _report(out).read_text()
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
         procs[key] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, out)
-    failed, logs = [], {}
+    failed = []
     for key, (proc, tmp, out) in procs.items():
         text, _ = proc.communicate()
         logs[key] = text
@@ -127,6 +137,8 @@ def _compile(jobs: dict) -> dict[str, str]:
             failed.append(f"--- {key} (nvcc exit {proc.returncode})\n"
                           f"{text}")
             continue
+        tmp.with_suffix(".ptxas").write_text(text)
+        os.replace(tmp.with_suffix(".ptxas"), _report(out))
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
@@ -136,8 +148,8 @@ def _compile(jobs: dict) -> dict[str, str]:
 def build_all() -> dict[str, str]:
     """Compile every library of :data:`TARGETS` that has no current
     build, one ``nvcc`` each, all in parallel.  Returns name -> ptxas
-    report of the builds made now.  Raises with nvcc's output if any
-    build fails."""
+    report of every library.  Raises with nvcc's output if any build
+    fails."""
     return _compile({name: _target(name) for name in TARGETS})
 
 
@@ -150,7 +162,7 @@ def library(name: str, extra: tuple = ()) -> ctypes.CDLL:
         lib = _libs.get(key)
         if lib is None:
             out, src, flags = _target(name, tuple(extra))
-            if not out.exists():
+            if not (out.exists() and _report(out).exists()):
                 if extra:
                     _compile({name: (out, src, flags)})
                 else:

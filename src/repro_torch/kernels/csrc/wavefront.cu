@@ -59,7 +59,10 @@
 //     reads none; a
 //     warp left with no chunk (chunks < P) touches no mbarrier and meets
 //     its CTA only at the final __syncthreads.  Sizes come from the host
-//     (kernels/wavefront.py::hard_geometry).
+//     (kernels/wavefront.py::hard_geometry).  The mbarrier helpers, the
+//     Ring / Cursor types and the walk itself (RingWalk) live in
+//     csrc/ring.cuh, shared with the soft-min K7 of
+//     csrc/family_wavefront.cu.
 //   * The query row is staged once in shared memory, padded by 32 zeros
 //     on each side so that rows outside [0, m) need no clamp; each lane
 //     loads its next step's sample one step ahead, as lane 0 does its
@@ -97,6 +100,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ring.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -120,7 +125,6 @@ namespace {
 constexpr float kBig = 3.0e38f;   // KERNEL_BIG of repro/core/spec.py
 constexpr int kNoWindow = -1;     // NO_WINDOW
 constexpr int kMaxWarps = 8;      // warps per CTA (kernels/wavefront.py)
-constexpr int kGroup = 32;        // ring rows per full/empty pair
 constexpr int kQPad = 32;         // zeros each side of the staged query
 
 // The compute type.  Under -DREPRO_BF16 every operand and every cell
@@ -138,43 +142,6 @@ __device__ __forceinline__ float bf16(float x) {
 #endif
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// release: the arriving thread's earlier shared-memory accesses are
-// visible to a thread whose wait sees the phase complete
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// acquire: true once the phase of the given parity has completed
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
-                                              uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n\t}"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
-}
-
 // One warp's registers: its W columns of the current chunk, the carries
 // of the anti-diagonal, and its running fold.
 template <int W, bool WINDOW>
@@ -188,19 +155,11 @@ struct Lane {
   int best_j, best_s;
 };
 
-// What one step reads and writes outside the warp's registers.
-// qrow: the staged query at sq + kQPad + 1 - lane, so qrow[t] is my next
-// step's sample; rd / wr: the ring slots of the current consumer and
-// producer groups, which hold rows t+1 and t-31 at index u; reads / writes:
-// this lane is lane 0 of a chunk with a left neighbour / lane 31 of a
-// chunk with a right neighbour.
-struct StepIO {
+// What one step reads and writes outside the warp's registers: the ring
+// slots (RingIO, csrc/ring.cuh) and qrow, the staged query at
+// sq + kQPad + 1 - lane, so qrow[t] is my next step's sample.
+struct StepIO : RingIO {
   const float* qrow;
-  const float* rd;
-  const int* srd;
-  float* wr;
-  int* swr;
-  bool reads, writes;
 };
 
 // One step of one chunk: lane l computes row i = t - l of its W columns.
@@ -290,31 +249,6 @@ __device__ __forceinline__ void step(Lane<W, WINDOW>& L, int t, int u,
 #endif
 }
 
-// One link's ring: slot s holds a group of kGroup rows (f32, and i32 with
-// the start lane); bars[2s] is its full, bars[2s+1] its empty mbarrier.
-struct Ring {
-  float* v;
-  int* s;
-  uint64_t* bars;
-};
-
-// A position in a link's stream of groups, which fill the slots in turn:
-// the slot, and the parity of its use (flips each time round the ring).
-// A warp keeps four: the next group it waits for (full) and releases
-// (empty) on its input link, and the next it waits to fill (empty) and
-// publishes (full) on its output link.  Each advances once per group, in
-// stream order, across the warp's chunks.
-struct Cursor {
-  int slot = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void advance(int slots) {
-    if (++slot == slots) {
-      slot = 0;
-      phase ^= 1u;
-    }
-  }
-};
-
 template <int W, bool WINDOW, bool BAND, bool ABS>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1)
 wavefront_kernel(const float* __restrict__ q, const float* __restrict__ r,
@@ -350,9 +284,8 @@ wavefront_kernel(const float* __restrict__ q, const float* __restrict__ r,
                 WINDOW ? ring_s + link * ring_rows : nullptr,
                 bars + 2 * link * slots};
   };
-  const Ring in = ring(warp), out = ring((warp + 1) % warps);
-  const int groups = (m + kGroup - 1) / kGroup;   // ring groups per chunk
-  Cursor in_wait, in_release, out_wait, out_publish;
+  RingWalk<WINDOW> walk{ring(warp), ring((warp + 1) % warps), slots,
+                        (m + kGroup - 1) / kGroup, lane};
 
   Lane<W, WINDOW> L;
   L.best_v = INFINITY;
@@ -361,30 +294,8 @@ wavefront_kernel(const float* __restrict__ q, const float* __restrict__ r,
   StepIO io;
   io.qrow = sq + kQPad + 1 - lane;
 
-  // consumer: wait for the next group's rows; producer: wait until the
-  // next group's slot was read in its previous use (passes at once for
-  // its first use)
-  auto take_in = [&]() {
-    mbar_wait(in.bars + 2 * in_wait.slot, in_wait.phase);
-    io.rd = in.v + in_wait.slot * kGroup;
-    if (WINDOW) io.srd = in.s + in_wait.slot * kGroup;
-    in_wait.advance(slots);
-  };
-  auto take_out = [&]() {
-    mbar_wait(out.bars + 2 * out_wait.slot + 1, out_wait.phase ^ 1u);
-    io.wr = out.v + out_wait.slot * kGroup;
-    if (WINDOW) io.swr = out.s + out_wait.slot * kGroup;
-    out_wait.advance(slots);
-  };
-  auto publish = [&]() {             // lane 31 stored the group's rows
-    if (lane == 31) mbar_arrive(out.bars + 2 * out_publish.slot);
-    out_publish.advance(slots);
-  };
-
   for (int c = warp; c < chunks; c += warps) {
-    const bool has_in = c > 0, has_out = c + 1 < chunks;
-    io.reads = has_in && lane == 0;
-    io.writes = has_out && lane == 31;
+    walk.open_chunk(c, chunks, io);
     const int j0 = (c * 32 + lane) * W;
 #pragma unroll
     for (int k = 0; k < W; ++k) {
@@ -394,35 +305,18 @@ wavefront_kernel(const float* __restrict__ q, const float* __restrict__ r,
     }
     L.left = kBig;                          // column -1 edge sentinel
     L.sleft = kNoWindow;
-    if (has_in) {
-      take_in();
-      __syncwarp();
-      if (lane == 0) {
-        L.left = io.rd[0];
-        if (WINDOW) L.sleft = io.srd[0];
-      }
+    if (walk.first_group(io) && lane == 0) {
+      L.left = io.rd[0];
+      if (WINDOW) L.sleft = io.srd[0];
     }
     L.upleft = kBig;
     L.supleft = kNoWindow;
     L.qv = sq[kQPad - lane];
 
-    // Blocks of 32 steps, block g holding steps t = 32g - 1 + u: lane 0
-    // reads row t+1 = 32g + u (consumer group g) and lane 31 writes row
-    // t-31 = 32(g-1) + u (producer group g-1), both at index u of their
-    // slots.  Block 0 starts at u = 1 (t = 0).  A block first releases
-    // what the previous one read and stored, then waits for its groups.
+    // blocks of 32 steps, opened by the ring step (RingWalk)
     for (int g = 0; 32 * g - 1 < m + 31; ++g) {
       const int t0 = 32 * g - 1;
-      if (g > 0) {
-        if (has_in) {
-          if (lane == 0) mbar_arrive(in.bars + 2 * in_release.slot + 1);
-          in_release.advance(slots);
-        }
-        if (has_out && g >= 2) publish();
-        if (has_in && g < groups) take_in();
-        if (has_out && g - 1 < groups) take_out();
-        __syncwarp();
-      }
+      if (g > 0) walk.open_block(g, io);
       if (g >= 2 && t0 + 31 < m - 1) {      // no row 0, no row m-1
 #pragma unroll 4
         for (int u = 0; u < kGroup; ++u)
@@ -435,9 +329,7 @@ wavefront_kernel(const float* __restrict__ q, const float* __restrict__ r,
                                            band, io);
       }
     }
-    // the last group's rows are stored after the last block
-    if (has_out) publish();
-    __syncwarp();
+    walk.close_chunk();
   }
 
   // lexicographic (value, column) merge: the earliest column wins, first

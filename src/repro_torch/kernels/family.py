@@ -9,8 +9,11 @@ folds ``CornerFold`` (twed, erp; ``:304``), ``LocalCellsFold`` (local,
 ``:341``) and ``SoftCellsFold`` (soft local, ``:389``).
 
 The geometry is the sdtw wavefront's (:mod:`repro_torch.kernels.
-wavefront`): one warp per query over the zero-padded reference layout,
-``32 * w`` columns a chunk.  The family operands come from
+wavefront`) over the zero-padded reference layout, ``32 * w`` columns a
+chunk: the hard-min build runs one warp per query, the soft-min build
+one CTA of ``warps`` warps per query, each chunk's boundary column passed
+to the next warp through a shared-memory ring (:func:`family_geometry`).
+The family operands come from
 :func:`repro_torch.kernels.ops.family_extras`: twed ``(r_prev,)`` and
 erp ``(bt, bl)``, ``r_prev``/``bt`` zero-padded to the layout's length
 and ``bl`` (B, M); local takes none.  Pad columns (``j >= n``) are
@@ -29,6 +32,8 @@ import torch
 from repro_torch.core.engine import sdtw_engine
 from repro_torch.core.spec import DPSpec
 from repro_torch.kernels import build, wavefront
+from repro_torch.kernels.wavefront import (QUERY_PAD, RING_GROUP,
+                                           RingGeometry)
 
 FAMILY_CODES = {"twed": 0, "erp": 1, "local": 2}
 EXTRA_INPUTS = {"twed": ("r_prev",), "erp": ("bt", "bl"), "local": ()}
@@ -51,6 +56,26 @@ def refuse_grad(spec: DPSpec, *tensors) -> None:
             f"family {spec.family!r} under soft-min has no backward "
             "kernel on the kernel backend: use backend='engine', whose "
             "autograd covers the families")
+
+
+def family_geometry(m: int, family_: str,
+                    warps: int = wavefront.WARPS) -> RingGeometry:
+    """Size soft K7's launch (``smem_bytes`` in family_wavefront.cu): the
+    hard-min kernel's rings (:func:`wavefront.ring_slots`, one f32 a
+    row), the mbarriers (16 bytes a slot and link) and the query padded
+    by QUERY_PAD zeros on each side; the same for every family.  Raises
+    when it and the static fold arrays are over the shared memory a
+    block can have (m above 26,912 at 8 warps)."""
+    slots = wavefront.ring_slots(m, warps, "soft K7")
+    ring_rows = slots * RING_GROUP
+    smem = (16 * warps * slots + 4 * (m + 2 * QUERY_PAD)
+            + 4 * warps * ring_rows)
+    if smem + wavefront.STATIC_SMEM > wavefront.SMEM_LIMIT:
+        raise ValueError(
+            f"query length m={m} needs {smem + wavefront.STATIC_SMEM} "
+            f"bytes of shared memory per block for soft {family_} (K7), "
+            f"over the {wavefront.SMEM_LIMIT} a block can have")
+    return RingGeometry(warps, slots, ring_rows, smem)
 
 
 def validate(q: torch.Tensor, r_layout: torch.Tensor, extras: tuple, *,
@@ -94,9 +119,37 @@ def family_plain(q: torch.Tensor, r_layout: torch.Tensor, extras: tuple, *,
     return sdtw_engine(q, r_layout[:cols], spec=spec, n_valid=n, extras=ex)
 
 
+def _soft_fn(lib: ctypes.CDLL, name: str):
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    if name == "soft_family_wavefront_launch":
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                       + [ctypes.c_float] * 6 + [ctypes.c_void_p] * 3)
+    else:
+        fn.argtypes = [ctypes.c_int] * 7
+    return fn
+
+
+def family_occupancy(m: int, w: int, family_: str,
+                     warps: int = wavefront.WARPS) -> int:
+    """CTAs of the (unbanded, sqeuclidean) soft K7 instantiation resident
+    per SM at this geometry
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; card only)."""
+    geo = family_geometry(m, family_, warps)
+    lib = build.library("soft_family_wavefront")
+    blocks = _soft_fn(lib, "soft_family_wavefront_occupancy")(
+        m, w, FAMILY_CODES[family_], 0, 0, geo.warps, geo.slots)
+    if blocks < 0:
+        build.check(lib, -blocks, f"soft K7 occupancy (w={w}, m={m})")
+    return blocks
+
+
 def family_cuda(q: torch.Tensor, r_layout: torch.Tensor, extras: tuple, *,
-                n: int, w: int, spec: DPSpec):
-    """Launch K7: one warp per query."""
+                n: int, w: int, spec: DPSpec, warps: int = wavefront.WARPS,
+                lib: ctypes.CDLL | None = None):
+    """Launch K7: the hard-min build one warp per query, the soft-min
+    build one CTA of ``warps`` warps per query.  ``lib``: another build
+    of the soft-min source (default: ``soft_family_wavefront``)."""
     B, m = q.shape
     chunks = visited_chunks(m, r_layout, w, spec)
     named = dict(zip(EXTRA_INPUTS[spec.family], extras))
@@ -104,26 +157,36 @@ def family_cuda(q: torch.Tensor, r_layout: torch.Tensor, extras: tuple, *,
     bl = named.get("bl")
     cost = torch.empty((B,), dtype=torch.float32, device=q.device)
     end = torch.empty((B,), dtype=torch.int32, device=q.device)
-    name = "soft_family_wavefront" if spec.soft else "family_wavefront"
-    lib = build.library(name)
-    fn = lib.family_wavefront_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] * 6 + [ctypes.c_void_p] * 3)
+    band = -1 if spec.band is None else int(spec.band)
+    # the constants are formed in double and rounded once to float32 by
+    # ctypes, as the plain version's Python scalars are by torch
+    consts = (spec.nu + spec.lam, 2.0 * spec.nu, spec.gap, spec.gap_penalty,
+              spec.match_reward)
+    ptrs = (q.data_ptr(), r_layout.data_ptr(),
+            0 if rx is None else rx.data_ptr(),
+            0 if bl is None else bl.data_ptr())
+    shape = (B, m, n, chunks, band, w, FAMILY_CODES[spec.family],
+             int(spec.distance == "abs"))
+    if spec.soft:
+        geo = family_geometry(m, spec.family, warps)
+        lib = lib if lib is not None else build.library(
+            "soft_family_wavefront")
+        fn = _soft_fn(lib, "soft_family_wavefront_launch")
+        args = (*ptrs, *shape, geo.warps, geo.slots, *consts, spec.gamma)
+        what = f"warps={geo.warps}, "
+    else:
+        lib = build.library("family_wavefront")
+        fn = lib.family_wavefront_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 3)
+        args = (*ptrs, *shape, *consts)
+        what = ""
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        # the constants are formed in double and rounded once to float32
-        # by ctypes, as the plain version's Python scalars are by torch
-        status = fn(q.data_ptr(), r_layout.data_ptr(),
-                    0 if rx is None else rx.data_ptr(),
-                    0 if bl is None else bl.data_ptr(), B, m, n, chunks,
-                    -1 if spec.band is None else int(spec.band), w,
-                    FAMILY_CODES[spec.family], int(spec.distance == "abs"),
-                    spec.nu + spec.lam, 2.0 * spec.nu, spec.gap,
-                    spec.gap_penalty, spec.match_reward, spec.gamma,
-                    cost.data_ptr(), end.data_ptr(), stream)
+        status = fn(*args, cost.data_ptr(), end.data_ptr(), stream)
     build.check(lib, status, f"family wavefront launch (w={w}, B={B}, "
-                             f"m={m}, {spec.describe()})")
+                             f"m={m}, {what}{spec.describe()})")
     counter.add(variant(spec))
     return cost, end
 

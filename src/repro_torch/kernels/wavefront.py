@@ -42,9 +42,10 @@ from repro_torch.kernels import build
 
 WARP = 32
 WIDTHS = (2, 4, 8, 14, 16, 32)     # the instantiations in wavefront.cu
-SMEM_LIMIT = 232_448               # dynamic shared memory per block, H100
-WARPS = 8                          # hard-min kernel: warps per CTA (query)
-MAX_WARPS = 8                      # kMaxWarps in wavefront.cu
+SMEM_LIMIT = 232_448               # shared memory per block, H100
+STATIC_SMEM = 128                  # a multi-warp kernel's static fold arrays
+WARPS = 8                          # hard-min, soft K7: warps per CTA (query)
+MAX_WARPS = 8                      # kMaxWarps in the .cu sources
 RING_GROUP = 32                    # ring rows per full/empty mbarrier pair
 QUERY_PAD = 32                     # zeros each side of the staged query
 KERNEL_DISTANCES = ("sqeuclidean", "abs")
@@ -120,41 +121,47 @@ def soft_geometry(m: int, n: int, n_pad: int, w: int, band: int | None,
 
 
 def strip_bytes(m: int) -> int:
-    """Shared memory of the one-warp kernels (K5/K6, K7): two strips of
-    m f32."""
+    """Shared memory of the one-warp kernels (K5/K6, hard K7): two strips
+    of m f32."""
     return 2 * 4 * m
 
 
-class HardGeometry(NamedTuple):
-    """Launch geometry of the hard-min kernel for one query length."""
+class RingGeometry(NamedTuple):
+    """Launch geometry of a multi-warp wavefront (the hard-min kernel,
+    soft K7) for one query length."""
     warps: int        # warps per CTA; one CTA per query
     slots: int        # ring groups of RING_GROUP rows, per link
     ring_rows: int    # slots * RING_GROUP
     smem_bytes: int   # dynamic shared memory per CTA
 
 
-def hard_geometry(m: int, with_window: bool,
-                  warps: int = WARPS) -> HardGeometry:
-    """Size the hard-min kernel's rings (``smem_bytes`` in wavefront.cu).
+def ring_slots(m: int, warps: int, kernel: str) -> int:
+    """Ring groups a link of a multi-warp kernel at query length m.
 
     Consecutive chunks start about ``(m + 31) / warps`` steps apart, so a
     link needs that many rows for no warp to wait, and the rings of the
     CTA together one column of m rows: with much less, every warp can
     end up waiting on a full ring (a deadlock).  Two groups a link are
     added as slack; ``tests/test_torch_wavefront_design.py`` runs the
-    kernel's schedule on a model of the mbarriers and finds the smallest
-    ring that completes two groups below this one at m = 2,000.  Shared
-    memory: the mbarriers (16 bytes a slot and link), the query padded by
-    QUERY_PAD zeros on each side, and one ring per link (f32, plus i32
-    with the start lane)."""
+    kernels' schedule on a model of the mbarriers and finds the smallest
+    ring that completes two groups below this one at m = 2,000."""
     if not 1 <= warps <= MAX_WARPS:
-        raise ValueError(f"warps={warps}: the hard-min kernel takes 1 to "
+        raise ValueError(f"warps={warps}: {kernel} takes 1 to "
                          f"{MAX_WARPS} warps per CTA")
-    slots = -(-(m + WARP - 1) // (RING_GROUP * warps)) + 2
+    return -(-(m + WARP - 1) // (RING_GROUP * warps)) + 2
+
+
+def hard_geometry(m: int, with_window: bool,
+                  warps: int = WARPS) -> RingGeometry:
+    """Size the hard-min kernel's rings (``smem_bytes`` in wavefront.cu,
+    :func:`ring_slots`).  Shared memory: the mbarriers (16 bytes a slot
+    and link), the query padded by QUERY_PAD zeros on each side, and one
+    ring per link (f32, plus i32 with the start lane)."""
+    slots = ring_slots(m, warps, "the hard-min kernel")
     ring_rows = slots * RING_GROUP
     smem = (16 * warps * slots + 4 * (m + 2 * QUERY_PAD)
             + (8 if with_window else 4) * warps * ring_rows)
-    return HardGeometry(warps, slots, ring_rows, smem)
+    return RingGeometry(warps, slots, ring_rows, smem)
 
 
 def plan_kernel(spec: DPSpec) -> str:
@@ -263,8 +270,8 @@ def validate(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
         raise ValueError(f"queries on {q.device}, reference layout on "
                          f"{r_layout.device}")
     m = q.shape[1]
-    smem_bytes = (hard_geometry(m, with_window).smem_bytes if hard
-                  else strip_bytes(m))
+    smem_bytes = (hard_geometry(m, with_window).smem_bytes + STATIC_SMEM
+                  if hard else strip_bytes(m))
     if smem_bytes > SMEM_LIMIT:
         raise ValueError(
             f"query length m={q.shape[1]} needs {smem_bytes} bytes of "

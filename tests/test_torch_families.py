@@ -381,3 +381,51 @@ def test_k7_matches_plain_on_card(cuda, family_, reduction):
                 else:
                     torch.testing.assert_close(got[0], want[0], rtol=1e-4,
                                                atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+@pytest.mark.parametrize("family_", FAMS)
+def test_soft_k7_chunk_counts_on_card(cuda, family_, warps):
+    """Soft K7's CTA of several warps at 1, P-1, P, P+1 and 2P+1 chunks
+    (idle warps, a ring that wraps) against its plain version."""
+    rng = np.random.default_rng(14)
+    spec = spec_for(family_, reduction="softmin")
+    P = wavefront.WARPS
+    for m in (1, 33, 200):
+        for k in (1, P - 1, P, P + 1, 2 * P + 1):
+            n = (k - 1) * 64 + 35            # w = 2: 64 columns a chunk
+            q = torch.from_numpy(rng.standard_normal((3, m)).astype(
+                np.float32)).to(cuda)
+            r = torch.from_numpy(rng.standard_normal(n).astype(
+                np.float32)).to(cuda)
+            lay = ops.prepare_reference(r, 2)
+            ex = ops.family_extras(spec, q, r, segment_width=2)
+            want = family.family_plain(q, lay, ex, n=n, w=2, spec=spec)
+            got = family.family_cuda(q, lay, ex, n=n, w=2, spec=spec,
+                                     warps=warps)
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], want[1]), (m, k)
+            torch.testing.assert_close(got[0], want[0], rtol=1e-4,
+                                       atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family_", FAMS)
+def test_soft_k7_at_its_longest_query_on_card(cuda, family_):
+    """The longest query soft K7 takes at 8 warps (its dynamic and static
+    shared memory together at the block's limit) against its plain
+    version."""
+    rng = np.random.default_rng(15)
+    spec = spec_for(family_, reduction="softmin")
+    m, n = 26_912, 100
+    q = torch.from_numpy(rng.standard_normal((2, m)).astype(
+        np.float32)).to(cuda)
+    r = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    lay = ops.prepare_reference(r, 2)
+    ex = ops.family_extras(spec, q, r, segment_width=2)
+    want = family.family_plain(q, lay, ex, n=n, w=2, spec=spec)
+    got = family.family_cuda(q, lay, ex, n=n, w=2, spec=spec)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)

@@ -252,6 +252,20 @@ def test_kernel_bit_equal_at_every_chunk_count_on_card(cuda, m, window):
 
 
 @pytest.mark.gpu
+def test_kernel_at_its_longest_query_on_card(cuda):
+    """The longest query the hard-min kernel takes: its dynamic and
+    static shared memory together at the block's limit."""
+    m, n = 26_912, 100
+    q, r = (torch.from_numpy(x).to(cuda) for x in _inputs(2, m, n, seed=5))
+    lay = wavefront.prepare_reference(r, 2)
+    want = wavefront.wavefront_plain(q, lay, n=n, w=2, spec=DPSpec())
+    got = wavefront.wavefront(q, lay, n=n, w=2, spec=DPSpec())
+    torch.cuda.synchronize()
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.gpu
 def test_exact_tie_on_card(cuda):
     q, r = _inputs(1, 10, 200, seed=3)
     r[50:60] = q[0]

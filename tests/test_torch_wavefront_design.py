@@ -1,16 +1,22 @@
-"""The design of the port's hard-min wavefront and K2 kernels, on the CPU:
-the reassociated cell of ``csrc/wavefront.cu`` against the port's
-``DPSpec.cell_update`` / ``start3``, a step-by-step model of the kernel's
+"""The design of the port's multi-warp wavefronts and K2 kernels, on the
+CPU: the reassociated cell of ``csrc/wavefront.cu`` against the port's
+``DPSpec.cell_update`` / ``start3``, a step-by-step model of the kernels'
 mbarrier ring between the warps of a CTA (every row arrives at the right
-chunk, no geometry deadlocks), and the host helpers that size the hard-min
-launch and K2's grid and cluster."""
+chunk, no geometry deadlocks), the host helpers that size the hard-min
+and soft K7 launches and K2's grid and cluster, and the soft K7 of
+``csrc/family_wavefront.cu`` emulated in torch (its base-2 soft-min with
+the min's own term fixed at 1, its cell, its steady blocks and its folds)
+against the port's ``DPSpec``."""
 import itertools
+import math
 
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.spec import DPSpec, KERNEL_BIG
-from repro_torch.kernels import normalizer, wavefront
+from repro_torch.core.spec import (DPSpec, KERNEL_BIG, SOFT_BIG,
+                                   previous_samples, resolve_spec)
+from repro_torch.kernels import family, normalizer, wavefront
 
 PAPER_M = 2000
 
@@ -52,7 +58,8 @@ def test_reassociated_cell_equals_cell_update_and_start3(dtype):
 
 # ------------------------------------------------------- the ring model
 def _simulate_cta(m: int, chunks: int, warps: int, slots: int):
-    """Run the CTA's schedule of wavefront.cu step by step, the warps in
+    """Run the CTA's schedule (``csrc/ring.cuh::RingWalk``, which the
+    hard-min kernel and soft K7 both walk) step by step, the warps in
     turn, with each mbarrier a count of completed phases and each wait a
     test of its phase parity, as ``mbarrier.try_wait.parity`` tests it.
     Returns the boundary rows each chunk read, {chunk: [(chunk, row),
@@ -182,6 +189,21 @@ def test_hard_geometry_at_paper_and_its_limit():
                             spec=DPSpec(), with_window=True)
 
 
+def test_hard_limit_counts_the_static_fold_arrays():
+    # the card refuses a launch whose dynamic and static shared memory
+    # together pass the block's limit: at m 26,913 the dynamic part fits
+    # alone, and the kernel's static fold arrays do not
+    longest = 26_912
+    for m in (longest, longest + 1):
+        assert wavefront.hard_geometry(m, False).smem_bytes \
+            <= wavefront.SMEM_LIMIT
+    wavefront.validate(torch.zeros(1, longest), torch.zeros(64), n=64, w=2,
+                       hard=True)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        wavefront.validate(torch.zeros(1, longest + 1), torch.zeros(64),
+                           n=64, w=2, hard=True)
+
+
 @pytest.mark.parametrize("rows", [1, 513])
 @pytest.mark.parametrize("n", [1, 31, 2000, 2001, 100_000, 100_003,
                                300_000])
@@ -208,3 +230,303 @@ def test_k2_geometry_at_paper():
     assert normalizer.geometry(1, 100_000) == (8, 4, 1024, 8)
     with pytest.raises(ValueError, match="empty"):
         normalizer.geometry(0, 5)
+
+
+# ------------------------------------------------------------- soft K7
+FAMS = ("twed", "erp", "local")
+FAMILY_PARAMS = dict(nu=0.5, lam=0.75, gap=0.25, gap_penalty=0.6,
+                     match_reward=1.1)
+
+
+@pytest.mark.parametrize("m", [1, 33, 200, PAPER_M])
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+@pytest.mark.parametrize("family_", FAMS)
+def test_family_geometry_fits_and_its_ring_delivers(family_, warps, m):
+    geo = family.family_geometry(m, family_, warps)
+    assert geo.warps == warps and geo.ring_rows == 32 * geo.slots
+    assert geo.smem_bytes + wavefront.STATIC_SMEM <= wavefront.SMEM_LIMIT
+    assert geo.smem_bytes == (16 * warps * geo.slots + 4 * (m + 64)
+                              + 4 * warps * geo.ring_rows)
+    # the soft kernel walks the hard-min kernel's ring schedule
+    counts = [2 * warps + 1] if m == PAPER_M else _chunk_counts(warps)
+    for chunks in counts:
+        read = _simulate_cta(m, chunks, warps, geo.slots)
+        for c in range(chunks):
+            want = [(c - 1, i) for i in range(m)] if c > 0 else []
+            assert read[c] == want, (family_, m, chunks, warps, c)
+
+
+def test_family_geometry_at_paper_and_its_limit():
+    for fam in FAMS:
+        assert family.family_geometry(PAPER_M, fam).smem_bytes == 19_776
+    with pytest.raises(ValueError, match="1 to 8 warps"):
+        family.family_geometry(PAPER_M, "local", 9)
+    # the longest query the card takes at 8 warps: the dynamic shared
+    # memory and the static fold arrays within the block's limit
+    for fam in FAMS:
+        geo = family.family_geometry(26_912, fam)
+        assert geo.smem_bytes + wavefront.STATIC_SMEM <= wavefront.SMEM_LIMIT
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            family.family_geometry(26_913, fam)
+    m = 20_000        # within the card's limit, and a CPU tensor runs it
+    spec = resolve_spec(None, family="erp", reduction="softmin",
+                        gamma=0.7, **FAMILY_PARAMS)
+    q = torch.zeros(1, m)
+    cost, end = family.family_wavefront(q, torch.zeros(64),
+                                        (torch.zeros(64), q), n=64, w=2,
+                                        spec=spec)
+    assert torch.isfinite(cost).all() and end.tolist() == [63]
+
+
+# The kernel's soft-min, emulated in float32: arguments pre-scaled by
+# log2(e)/gamma, the min's own term fixed at 1, the logarithm in base 2
+# times gamma*ln 2 (torch's exp2/log2 stand in for MUFU ex2/lg2, whose
+# approximation the card's parity cases hold to 1e-4).
+def _consts(gamma):
+    return (torch.tensor(math.log2(math.e) / gamma, dtype=torch.float32),
+            torch.tensor(gamma * math.log(2.0), dtype=torch.float32))
+
+
+def _kernel_smin3(a, b, c, gamma):
+    k2, gl = _consts(gamma)
+    lo, hi = torch.minimum(b, c), torch.maximum(b, c)
+    mn, o2 = torch.minimum(a, lo), torch.maximum(a, lo)
+    s = 1.0 + torch.exp2((mn - hi) * k2) + torch.exp2((mn - o2) * k2)
+    return mn - gl * torch.log2(s)
+
+
+def _kernel_smin0(v, gamma):
+    k2, gl = _consts(gamma)
+    return torch.minimum(v, torch.zeros_like(v)) \
+        - gl * torch.log2(1.0 + torch.exp2(-v.abs() * k2))
+
+
+def _soft_spec(family_="sdtw", gamma=0.7, distance="sqeuclidean"):
+    kw = FAMILY_PARAMS if family_ != "sdtw" else {}
+    return resolve_spec(None, family=family_, reduction="softmin",
+                        gamma=gamma, distance=distance, **kw)
+
+
+def _operands(rng, n):
+    """Random predecessor values, every tie pattern of three, and the
+    SOFT_BIG sentinel in one, two and all three places."""
+    x = torch.from_numpy(rng.normal(scale=20.0, size=(n, 3)).astype(
+        np.float32))
+    pool = (0.0, 0.5, 3.0, SOFT_BIG)
+    ties = torch.tensor(list(itertools.product(pool, repeat=3)),
+                        dtype=torch.float32)
+    return torch.cat([x, ties]).unbind(1)
+
+
+@pytest.mark.parametrize("gamma", [0.01, 0.7, 5.0])
+def test_kernel_soft_min_equals_reduce3_and_reduce2(gamma):
+    rng = np.random.default_rng(21)
+    a, b, c = _operands(rng, 4000)
+    spec = _soft_spec(gamma=gamma)
+    got = _kernel_smin3(a, b, c, gamma)
+    want = spec.reduce3(a, b, c)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+    # the operand order does not matter: the left operand may be any one
+    torch.testing.assert_close(_kernel_smin3(c, a, b, gamma), want,
+                               rtol=1e-6, atol=1e-5)
+    # all three at SOFT_BIG: SOFT_BIG, not NaN
+    big = torch.full((4,), SOFT_BIG)
+    assert torch.equal(_kernel_smin3(big, big, big, gamma), big)
+    v = torch.cat([a, torch.tensor([0.0, -0.0, SOFT_BIG, -3.0])])
+    got0 = _kernel_smin0(v, gamma)
+    assert torch.isfinite(got0).all()
+    torch.testing.assert_close(got0, spec.reduce2(v, torch.zeros_like(v)),
+                               rtol=1e-6, atol=1e-5)
+
+
+def _kernel_family_cell(spec, qv, rv, left, up, upleft, *, i, j, q_prev,
+                        r_prev, top, left_bnd):
+    """One cell as soft K7 computes it: the column-only t_left and the
+    row-only t_up hoisted, the boundaries injected at row -1 and column
+    -1 in the order of the kernel's EDGE step, then the base-2 soft-min
+    and, for local, the restart floor."""
+    g = spec.gamma
+    d = spec.cell_cost
+    big = torch.tensor(SOFT_BIG)
+    zero = torch.zeros(())
+    row0, col0 = i == 0, j == 0
+    if spec.family == "twed":
+        nl = spec.nu + spec.lam
+        tl, tup = d(rv, r_prev) + nl, d(qv, q_prev) + nl
+        td = (d(qv, rv) + d(q_prev, r_prev)) \
+            + (2.0 * spec.nu) * (i - j).abs().float()
+        up_b = torch.where(row0, big, up)
+        ul_b = torch.where(row0, torch.where(col0, zero, big), upleft)
+        left_b = torch.where(col0, big, left)
+        ul_b = torch.where(col0 & ~row0, big, ul_b)
+    elif spec.family == "erp":
+        tl, tup, td = d(rv, spec.gap), d(qv, spec.gap), d(qv, rv)
+        up_b = torch.where(row0, top, up)
+        ul_b = torch.where(row0, top - tl, upleft)
+        left_b = torch.where(col0, left_bnd, left)
+        ul_b = torch.where(col0 & ~row0, left_bnd - tup, ul_b)
+    else:
+        tl = tup = torch.tensor(spec.gap_penalty)
+        td = d(qv, rv) - spec.match_reward
+        up_b = torch.where(row0, zero, up)
+        left_b = torch.where(col0, zero, left)
+        ul_b = torch.where(row0 | col0, zero, upleft)
+    val = _kernel_smin3(left_b + tl, up_b + tup, ul_b + td, g)
+    return _kernel_smin0(val, g) if spec.family == "local" else val
+
+
+@pytest.mark.parametrize("distance", ["sqeuclidean", "abs"])
+@pytest.mark.parametrize("family_", FAMS)
+def test_kernel_family_cell_equals_family_cell(family_, distance):
+    rng = np.random.default_rng(22)
+    n = 3000
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy(rng.normal(scale=scale, size=shape).astype(
+            np.float32))
+    spec = _soft_spec(family_, distance=distance)
+    qv, rv, q_prev, r_prev = f32(n), f32(n), f32(n), f32(n)
+    left, up, upleft = f32(n, scale=30.0), f32(n, scale=30.0), \
+        f32(n, scale=30.0)
+    # ties, and the sentinel in the neighbours
+    up[:300] = left[:300]
+    upleft[300:600] = SOFT_BIG
+    left[600:700] = SOFT_BIG
+    top, left_bnd = f32(n, scale=30.0), f32(n, scale=30.0)
+    i = torch.from_numpy(rng.integers(0, 4, size=n))
+    j = torch.from_numpy(rng.integers(0, 4, size=n))
+    kw = dict(i=i, j=j, q_prev=q_prev, r_prev=r_prev)
+    got = _kernel_family_cell(spec, qv, rv, left, up, upleft, top=top,
+                              left_bnd=left_bnd, **kw)
+    want = spec.family_cell(qv, rv, left, up, upleft, is_row0=i == 0,
+                            is_col0=j == 0, top_boundary=top,
+                            left_boundary=left_bnd, **kw)
+    assert torch.isfinite(got).all()
+    assert {(bool(a), bool(b)) for a, b in zip(i == 0, j == 0)} == {
+        (False, False), (False, True), (True, False), (True, True)}
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+
+
+def test_twed_diagonal_carry_is_the_previous_steps_distance():
+    """twed's d(q_i-1, r_j-1): the kernel carries the lane's own
+    d(q, r_j-1) of the previous step (d(0, r) before row 0, the padded
+    query's zero), which equals the plain version's d(q_prev, r_prev)
+    on every cell, row 0 and column 0 included."""
+    rng = np.random.default_rng(23)
+    q = torch.from_numpy(rng.normal(size=40).astype(np.float32))
+    r = torch.from_numpy(rng.normal(size=24).astype(np.float32))
+    spec = _soft_spec("twed")
+    want = spec.cell_cost(previous_samples(q)[:, None],
+                          previous_samples(r)[None, :])
+    carried = spec.cell_cost(torch.zeros(()), r)        # row -1
+    got = torch.empty_like(want)
+    for i in range(q.shape[0]):
+        got[i, 0] = spec.cell_cost(previous_samples(q)[i],
+                                   torch.zeros(()))      # r[-1] = 0
+        got[i, 1:] = carried[:-1]
+        carried = spec.cell_cost(q[i], r)
+    assert torch.equal(got, want)
+
+
+def _steady(c, g, *, w, m, n, band):
+    """The kernel's steady-block rule (csrc/family_wavefront.cu)."""
+    t0 = 32 * g - 1
+    cj0 = c * 32 * w
+    cj1 = cj0 + 32 * w - 1
+    ok = not (c == 0 or cj1 >= n - 1) and g >= 2 and t0 + 31 < m - 1
+    if band is not None:
+        ok = ok and t0 + 31 - cj0 <= band and cj1 - (t0 - 31) <= band
+    return ok
+
+
+@pytest.mark.parametrize("band", [None, 0, 40, 300])
+@pytest.mark.parametrize("m", [1, 33, 64, 200])
+def test_steady_blocks_meet_no_edge(m, band):
+    """Every cell a steady block computes is a live interior cell of the
+    matrix, in band, on a real column: no test of the EDGE step can
+    fire there."""
+    w = 2
+    for n in (1, 63, 64, 65, 300, 700):
+        chunks = wavefront.num_chunks(n, w)
+        for c in range(chunks):
+            for g in range((m + 31 + 1 + 31) // 32):
+                if not _steady(c, g, w=w, m=m, n=n, band=band):
+                    continue
+                t = torch.arange(32 * g - 1, 32 * g + 31)
+                lane = torch.arange(32)
+                i = (t[:, None] - lane[None, :]).flatten()
+                cols = torch.arange(c * 64, (c + 1) * 64)
+                assert i.min() >= 1 and i.max() <= m - 2
+                assert cols.min() >= 1 and cols.max() <= n - 2
+                if band is not None:
+                    assert (i[:, None] - cols[None, :]).abs().max() <= band
+
+
+def _fold_lane(vals, cols, k2):
+    """fold_cell of the kernel over one lane's cells, in order."""
+    best_v = torch.tensor(SOFT_BIG)
+    best_j = 2 ** 31 - 1
+    run_m, run_s = torch.tensor(-SOFT_BIG), torch.tensor(0.0)
+    for v, j in zip(vals, cols):
+        if v < best_v or (v == best_v and j < best_j):
+            best_v, best_j = v, int(j)
+        x = -v * k2
+        d = x - run_m
+        e = torch.exp2(-d.abs())
+        run_s = run_s * e + 1.0 if d > 0 else run_s + e
+        run_m = torch.maximum(run_m, x)
+    return best_v, best_j, run_m, run_s
+
+
+def _merge(a, b):
+    """The kernel's merge of two lanes' (or warps') folds."""
+    (av, aj, am, as_), (bv, bj, bm, bs) = a, b
+    if bv < av or (bv == av and bj < aj):
+        av, aj = bv, bj
+    mx = torch.maximum(am, bm)
+    return av, aj, mx, as_ * torch.exp2(am - mx) + bs * torch.exp2(bm - mx)
+
+
+@pytest.mark.parametrize("warps", [1, 3, 8])
+def test_per_warp_fold_merge_equals_one_logsumexp(warps):
+    """Soft local's folds: each lane's running (max, sum) in base 2,
+    merged by the shuffle tree of a warp and then across the warps,
+    equals one logsumexp of -D/gamma over the same cells, and the
+    (value, column) fold is the earliest column of the minimum."""
+    gamma = 0.7
+    k2, gl = _consts(gamma)
+    rng = np.random.default_rng(24)
+    lanes = 32 * warps
+    per_lane = 40
+    vals = torch.from_numpy(rng.normal(scale=3.0, size=(lanes, per_lane))
+                            .astype(np.float32)) - 20.0
+    vals[5, 7] = vals[70 % lanes, 3] = vals.min() - 1.0     # a tie
+    cols = torch.from_numpy(rng.permutation(lanes * per_lane)
+                            .reshape(lanes, per_lane))
+    counts = torch.from_numpy(rng.integers(0, per_lane + 1, size=lanes))
+    if warps > 1:
+        counts[-32:] = 0                              # an idle warp
+    counts[5] = counts[70 % lanes] = per_lane
+    folds = [_fold_lane(vals[lane, :counts[lane]],
+                        cols[lane, :counts[lane]], k2)
+             for lane in range(lanes)]
+    warp_folds = []
+    for w in range(warps):
+        f = folds[32 * w:32 * (w + 1)]
+        for off in (16, 8, 4, 2, 1):                  # __shfl_down_sync
+            f = [_merge(f[x], f[x + off]) if x + off < 32 else f[x]
+                 for x in range(32)]
+        warp_folds.append(f[0])
+    total = warp_folds[0]
+    for f in warp_folds[1:]:
+        total = _merge(total, f)
+    best_v, best_j, run_m, run_s = total
+    cells = torch.cat([vals[lane, :counts[lane]] for lane in range(lanes)])
+    cell_cols = torch.cat([cols[lane, :counts[lane]]
+                           for lane in range(lanes)])
+    want = -gamma * torch.logsumexp(-cells.double() / gamma, dim=0)
+    got = -gl * (run_m + torch.log2(run_s))
+    assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+    assert best_v == cells.min()
+    assert best_j == int(cell_cols[cells == cells.min()].min())
