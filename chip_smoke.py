@@ -8,8 +8,8 @@ NVIDIA H100.
 
 Phases, one JSON line each:
   1. the card (``nvidia-smi`` name and power limit) and the kernel build
-     (``nvcc -Xptxas -v``: registers and spills per instantiation; no
-     soft K7 instantiation may spill);
+     (``nvcc -Xptxas -v``: registers and spills per instantiation; every
+     K5/K6 and soft K7 instantiation must report, and none may spill);
   2. K2 (its row and cluster kernels) against its plain version on the
      PAPER query batch (512, 2000) and reference (100,000,), and at 1 and
      513 rows of 1, 31, 2,001, 100,000, 100,003 and 300,003 samples, each
@@ -30,8 +30,9 @@ Phases, one JSON line each:
      path (``repro_torch.sdtw(..., band=900)``, K4) on the same data,
      its counts read on their own, bit for bit against the plain version;
   5. ``geometry`` (warps per CTA, ring rows, shared memory per CTA, CTAs
-     resident per SM of K1, K3 and soft K7 (twed, erp, local; with its
-     registers) at PAPER; K2's kernel, cluster size and grid) and
+     resident per SM of K1, K3, K5/K6 and soft K7 (twed, erp, local; the
+     soft kernels with their registers) at PAPER; K2's kernel, cluster
+     size and grid) and
      ``times``: CUDA events (warm) for K1 and K3 at PAPER, every
      width, and a warm ``Aligner`` call; device time from a CUDA graph
      of 20 launches for the small kernels (K4, K2 on the batch and on the
@@ -42,10 +43,11 @@ Phases, one JSON line each:
      on every width, gamma 0.01 / 0.1 / 1.0, bands None, 0, 64 and 900,
      B 1 and 9, both distances, on references of several chunks whose
      last chunk is partly padding (every one of the 48 soft
-     instantiations runs on a multi-chunk sweep): cost and strips within
-     atol = rtol = 1e-4, ends equal, the reverse cost readout within
-     1e-5 of the forward cost, and a blocked band answered with no
-     launch;
+     instantiations runs on a multi-chunk sweep), and on references of
+     1, P-1, P, P+1 and 2P+1 chunks (P warps per CTA) at widths 2 and 8:
+     cost and strips within atol = rtol = 1e-4, ends equal, the reverse
+     cost readout within 1e-5 of the forward cost, and a blocked band
+     answered with no launch;
   7. ``soft_main_path``: ``repro_torch.sdtw`` and an ``Aligner`` under
      ``DPSpec(reduction="softmin")`` (gamma 1.0) at full PAPER width,
      launch counts (K2, K5), all 512 costs within 1e-4 of the plain
@@ -62,7 +64,8 @@ Phases, one JSON line each:
      (engine autograd) at B 4, M 64, N 2,048, atol = rtol = 1e-4, with
      each row's mass;
  10. ``soft_times``: K5, K6-forward and K6-reverse at PAPER, K6 and the
-     tile pass at the training shape, plain versions, bounds;
+     tile pass at the training shape, plain versions, bounds, the
+     one-warp K5/K6's times of record beside;
  11. ``family_parity``: K7 (twed, erp, local; hard and soft; both
      distances; every width) against its plain version on references of
      three chunks whose last chunk is partly padding, unbanded and
@@ -157,6 +160,17 @@ FAMILY_OPS = {  # (variant, family) -> (FP32, MUFU) a cell
 K7_ONE_WARP_MS = {("twed", False): 159.07, ("erp", False): 142.95,
               ("local", False): 326.81, ("twed", True): 759.83,
               ("erp", True): 743.66, ("local", True): 1438.88}
+# K5/K6 at one warp per query, before they ran several warps per query
+# (ms, the times of record in PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W"),
+# printed beside this run's times
+K56_ONE_WARP_MS = {"k5_ms": 871.83, "k6f_paper_ms": 872.33,
+                   "k6r_paper_ms": 811.30, "k6f_train_ms": 10.381,
+                   "k6r_train_ms": 9.574}
+# The soft-min parity cases at 1, P-1, P, P+1 and 2P+1 visited chunks:
+# (widths, gamma, band, distance); the plain K6 sweeps a chunk at a time,
+# host-paced, so the wide widths are left to the gpu tests
+SOFT_CHUNK_CASES = (((2, 8), 0.1, None, "sqeuclidean"),
+                    ((2,), 1.0, 900, "abs"))
 # bf16-K1: the function is K1's 5 operations (sub, mul, min, min, add) in
 # bf16.  The H100 issues them packed, two bf16 elements per FP32 lane per
 # clock (HADD2/HMUL2/HMNMX2.BF16: NVIDIA's H100 data gives its non-tensor
@@ -373,59 +387,71 @@ def soft_parity(c) -> None:
              (9, 200, 1.0, 64, "sqeuclidean"), (1, 200, 1.0, None, "abs"),
              (9, 200, 0.1, 900, "abs"), (1, 200, 0.01, 900, "sqeuclidean")]
     widths = wavefront.WIDTHS if c.cuda else (2, 4)
-    checked = mismatches = 0
+    P = wavefront.WARPS
+    # (w, n, B, m, gamma, band, distance, visited chunks or None): three
+    # chunks, the last part pad, at every width; then 1, P-1, P, P+1 and
+    # 2P+1 chunks (idle warps, a ring that wraps, a band-skipped reverse
+    # sweep that starts chunk0 chunks in)
+    runs = [(w, 2 * wavefront.chunk_cols(w) + wavefront.chunk_cols(w) // 2
+             + 3, *case, None) for w in widths for case in cases]
+    for ws, gamma, band, distance in SOFT_CHUNK_CASES:
+        for w in (ws if c.cuda else (2,)):
+            W = wavefront.chunk_cols(w)
+            runs += [(w, (k - 1) * W + W // 2 + 3, 2, 33, gamma, band,
+                      distance, k)
+                     for k in (1, P - 1, P, P + 1, 2 * P + 1)]
+    checked = mismatches = chunk_cases = 0
     worst = {"cost": 0.0, "strips": 0.0, "reverse_vs_forward": 0.0}
     before = wavefront.soft_counter.count
-    for w in widths:
-        W = wavefront.chunk_cols(w)
-        n = 2 * W + W // 2 + 3          # three chunks, the last part pad
-        for B, m, gamma, band, distance in cases:
-            spec = soft_spec(gamma, band, distance)
-            q, r = series(B, m), series(n)
-            lay = ops.prepare_reference(r, w)
-            rlay = ops.prepare_reference_reverse(r, w)
-            qf = torch.flip(q, (1,)).contiguous()
-            got = {"K5": wavefront.soft_wavefront(q, lay, n=n, w=w,
-                                                  spec=spec),
-                   "K6-forward": wavefront.soft_checkpoint(
-                       q, lay, n=n, w=w, spec=spec),
-                   "K6-reverse": wavefront.soft_checkpoint(
-                       qf, rlay, n=n, w=w, spec=spec, reverse=True)}
-            want = {"K5": wavefront.soft_plain(q, lay, n=n, w=w, spec=spec),
-                    "K6-forward": wavefront.checkpoint_plain(
-                        q, lay, n=n, w=w, spec=spec),
-                    "K6-reverse": wavefront.checkpoint_plain(
-                        qf, rlay, n=n, w=w, spec=spec, reverse=True)}
-            c.sync()
-            for name in got:
-                a, b = got[name], want[name]
-                ok = bool(torch.allclose(a[0], b[0], rtol=1e-4, atol=1e-4))
-                worst["cost"] = max(worst["cost"],
-                                    float((a[0] - b[0]).abs().max()))
-                if name != "K6-reverse":      # the reverse end is unused
-                    ok = ok and torch.equal(a[1], b[1])
-                if name != "K5":
-                    ok = ok and bool(torch.allclose(a[2], b[2], rtol=1e-4,
-                                                    atol=1e-4))
-                    worst["strips"] = max(
-                        worst["strips"], float((a[2] - b[2]).abs().max()))
-                checked += 1
-                if not ok:
-                    mismatches += 1
-                    emit({"phase": "soft_mismatch", "kernel": name, "w": w,
-                          "B": B, "m": m, "n": n, "gamma": gamma,
-                          "band": band, "distance": distance,
-                          "got": [x.flatten()[:4].tolist() for x in a],
-                          "want": [x.flatten()[:4].tolist() for x in b]})
-            fwd, rev = got["K6-forward"][0], got["K6-reverse"][0]
-            rel = float(((rev - fwd).abs() / fwd.abs().clamp(min=1.0)).max())
-            worst["reverse_vs_forward"] = max(worst["reverse_vs_forward"],
-                                              rel)
-            if rel > 1e-5:
+    t0 = time.perf_counter()
+    for w, n, B, m, gamma, band, distance, chunks in runs:
+        spec = soft_spec(gamma, band, distance)
+        q, r = series(B, m), series(n)
+        lay = ops.prepare_reference(r, w)
+        rlay = ops.prepare_reference_reverse(r, w)
+        qf = torch.flip(q, (1,)).contiguous()
+        got = {"K5": wavefront.soft_wavefront(q, lay, n=n, w=w,
+                                              spec=spec),
+               "K6-forward": wavefront.soft_checkpoint(
+                   q, lay, n=n, w=w, spec=spec),
+               "K6-reverse": wavefront.soft_checkpoint(
+                   qf, rlay, n=n, w=w, spec=spec, reverse=True)}
+        want = {"K5": wavefront.soft_plain(q, lay, n=n, w=w, spec=spec),
+                "K6-forward": wavefront.checkpoint_plain(
+                    q, lay, n=n, w=w, spec=spec),
+                "K6-reverse": wavefront.checkpoint_plain(
+                    qf, rlay, n=n, w=w, spec=spec, reverse=True)}
+        c.sync()
+        for name in got:
+            a, b = got[name], want[name]
+            ok = bool(torch.allclose(a[0], b[0], rtol=1e-4, atol=1e-4))
+            worst["cost"] = max(worst["cost"],
+                                float((a[0] - b[0]).abs().max()))
+            if name != "K6-reverse":      # the reverse end is unused
+                ok = ok and torch.equal(a[1], b[1])
+            if name != "K5":
+                ok = ok and bool(torch.allclose(a[2], b[2], rtol=1e-4,
+                                                atol=1e-4))
+                worst["strips"] = max(
+                    worst["strips"], float((a[2] - b[2]).abs().max()))
+            checked += 1
+            chunk_cases += chunks is not None
+            if not ok:
                 mismatches += 1
-                emit({"phase": "soft_reverse_readout_mismatch", "w": w,
-                      "B": B, "m": m, "gamma": gamma, "band": band,
-                      "relative": rel})
+                emit({"phase": "soft_mismatch", "kernel": name, "w": w,
+                      "B": B, "m": m, "n": n, "chunks": chunks,
+                      "gamma": gamma, "band": band, "distance": distance,
+                      "got": [x.flatten()[:4].tolist() for x in a],
+                      "want": [x.flatten()[:4].tolist() for x in b]})
+        fwd, rev = got["K6-forward"][0], got["K6-reverse"][0]
+        rel = float(((rev - fwd).abs() / fwd.abs().clamp(min=1.0)).max())
+        worst["reverse_vs_forward"] = max(worst["reverse_vs_forward"],
+                                          rel)
+        if rel > 1e-5:
+            mismatches += 1
+            emit({"phase": "soft_reverse_readout_mismatch", "w": w,
+                  "B": B, "m": m, "gamma": gamma, "band": band,
+                  "relative": rel})
     launches = wavefront.soft_counter.count - before
     # a band that blocks every bottom-row cell: +inf, end 0, no launch
     spec = soft_spec(1.0, 0)
@@ -439,7 +465,9 @@ def soft_parity(c) -> None:
     emit({"phase": "soft_parity", "rule": "cost and strips within "
           "atol=rtol=1e-4 of the plain version, ends equal, reverse "
           "readout within 1e-5 (relative) of the forward cost",
-          "cases": checked, "mismatches": mismatches,
+          "cases": checked, "chunk_count_cases": chunk_cases,
+          "warps_per_cta": P, "seconds": time.perf_counter() - t0,
+          "mismatches": mismatches,
           "launches": launches, "widths": list(widths),
           "worst": worst, "blocked_band_no_launch": blocked_ok})
     require(mismatches == 0, f"{mismatches} soft kernel cases differ from "
@@ -773,6 +801,9 @@ def soft_times(c, main_soft: dict, train: dict) -> dict:
                     "segment_width": tw, "gamma": SOFT_TRAIN_GAMMA},
           "k5_plain_ms": main_soft["plain_ms"],
           "sgd_step_ms": train["sgd_step_ms"], **out,
+          "one_warp_ms": K56_ONE_WARP_MS,
+          "one_warp": "K5/K6 at one warp per query, PERF.md's times of "
+                      "record (NVIDIA H100 80GB HBM3, 700.00 W)",
           "cells_paper": cells, "cells_train": tcells,
           "bound_rule": "max(bytes / 3.35 TB/s, 13 FP32 ops a cell / "
                         "(132 x 128 lanes x max SM clock), 3 MUFU ops a "
@@ -1209,16 +1240,18 @@ def main(argv=None) -> int:
                                             for r in rows)}
                   for name, rows in ptxas.items()},
               "ptxas_table": "chiprun_out/ptxas.json"})
-        # every instantiation of soft K7 (6 widths x 3 families x band x
+        # every instantiation of K5/K6 (6 widths x reverse x band x
+        # distance) and of soft K7 (6 widths x 3 families x band x
         # distance) reports, and none spills
-        soft_k7 = [r for r in ptxas.get("soft_family_wavefront", [])
-                   if "family" in r]
-        require(len(soft_k7) == 72,
-                f"ptxas reports {len(soft_k7)} soft K7 instantiations, "
-                f"not 72")
-        require(all(r.get("spill_stores", 0) + r.get("spill_loads", 0) == 0
-                    for r in soft_k7),
-                "a soft K7 instantiation spills registers")
+        for lib, key, want in (("soft_wavefront", "reverse", 48),
+                               ("soft_family_wavefront", "family", 72)):
+            rows = [r for r in ptxas.get(lib, []) if key in r]
+            require(len(rows) == want,
+                    f"ptxas reports {len(rows)} {lib} instantiations, "
+                    f"not {want}")
+            require(all(r.get("spill_stores", 0) + r.get("spill_loads", 0)
+                        == 0 for r in rows),
+                    f"a {lib} instantiation spills registers")
 
     queries_np, ref_np, planted = make_data(np, cfg, args.seed)
     q_raw = torch.from_numpy(queries_np).to(dev)
@@ -1539,6 +1572,18 @@ def main(argv=None) -> int:
             "ring_groups": geo.slots, "smem_bytes_per_cta": geo.smem_bytes,
             "ctas": B, "ctas_resident_per_sm": wavefront.hard_occupancy(
                 m, w, with_window=win) if cuda else None}
+    k56_regs = {(r.get("reverse"), r.get("w")): r.get("registers")
+                for r in ptxas.get("soft_wavefront", [])
+                if not r.get("band") and not r.get("abs")}
+    for label, reverse in (("K5/K6-forward", False), ("K6-reverse", True)):
+        geo = wavefront.soft_ring_geometry(m)
+        geometry[label] = {
+            "warps_per_cta": geo.warps, "ring_rows": geo.ring_rows,
+            "ring_groups": geo.slots, "smem_bytes_per_cta": geo.smem_bytes,
+            "registers": k56_regs.get((reverse, w)), "ctas": B,
+            "ctas_resident_per_sm": wavefront.soft_occupancy(
+                m, w, reverse=reverse) if cuda else None,
+            "longest_query": wavefront.longest_query(soft_spec(1.0))}
     soft_k7_regs = {(r.get("family"), r.get("w")): r.get("registers")
                     for r in ptxas.get("soft_family_wavefront", [])
                     if not r.get("band") and not r.get("abs")}

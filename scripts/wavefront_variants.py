@@ -28,6 +28,17 @@ gamma 0.7, chip_smoke's parameters), at the same workload:
     and their PAPER costs compared;
   * the steady loop of the as-built and exact builds at width 8 from the
     SASS: its instructions a step and its MUFU operations a step.
+The soft-min sDTW sweeps K5 / K6 (``csrc/wavefront.cu`` built with
+``-DREPRO_SOFT``, gamma 1, the PAPER soft path's), at the same workload:
+  * K5 at 1, 2, 4 and 8 warps per CTA at width 8, and at 4 and 8 warps
+    at every other width, with the CTAs resident per SM; every output
+    within atol = rtol = 1e-4 of the default geometry's, ends equal; the
+    K6 pair at 1 and 8 warps;
+  * the MUFU soft-min (as built) against ``-DREPRO_EXACT_SOFTMIN``: K5
+    and the K6 pair held to their plain versions on 1 to 2P+1 chunks in
+    both builds, then K5 timed in turns and the PAPER costs compared;
+  * the steady loop of K5 (forward) and K6-reverse at width 8, both
+    builds, from the SASS: instructions and MUFU operations a step.
 Prints one JSON line per measurement and the card's ``nvidia-smi`` name
 and power limit; writes the lot to ``chiprun_out/wavefront_variants.json``.
 Needs a card: exits 1 without one.
@@ -56,7 +67,7 @@ def steady_loop(sass: str, entry: str, marker: str = "FMNMX",
     """The steady step loop of ``entry``: among its innermost loops (a
     backward branch whose range holds no other loop's branch), the one
     that issues the fewest instructions per ``marker`` opcode (FMNMX for
-    the hard-min kernel, MUFU for soft K7).  Its length, the steps it
+    the hard-min kernel, MUFU for the soft kernels).  Its length, the steps it
     unrolls (``per_step`` markers a step, 2w FMNMX for the hard-min
     kernel; else one SHFL a step), its instructions and MUFU operations
     a step, and its opcodes."""
@@ -196,6 +207,126 @@ def soft_k7(log: list, q, r, series, timed) -> int:
     return mismatches
 
 
+def soft_k56(log: list, q, r, series, timed) -> int:
+    """The K5/K6 section (see the module docstring).  Returns the number
+    of parity mismatches."""
+    import torch
+    from repro_torch.configs.paper_sdtw import PAPER
+    from repro_torch.core.spec import DPSpec
+    from repro_torch.kernels import build, ops, wavefront
+    exact = build.library("soft_wavefront", EXACT)
+    w, m, n, B = PAPER.segment_width, PAPER.query_len, PAPER.ref_len, \
+        PAPER.batch
+    P = wavefront.WARPS
+    spec = DPSpec(reduction="softmin", gamma=1.0)
+
+    def close(a, b):
+        return torch.equal(a[1], b[1]) and bool(
+            torch.allclose(a[0], b[0], rtol=1e-4, atol=1e-4))
+
+    # both soft-min builds against the plain versions, 1 to 2P+1 chunks
+    mismatches = cases = 0
+    for mm in (33, 200):
+        for k in (1, P + 1, 2 * P + 1):
+            nn = (k - 1) * 64 + 35               # w 2: 64 columns
+            qq, rr = series(3, mm), series(nn)
+            lay = ops.prepare_reference(rr, 2)
+            rlay = ops.prepare_reference_reverse(rr, 2)
+            qf = torch.flip(qq, (1,)).contiguous()
+            want = [wavefront.soft_plain(qq, lay, n=nn, w=2, spec=spec),
+                    wavefront.checkpoint_plain(qq, lay, n=nn, w=2,
+                                               spec=spec),
+                    wavefront.checkpoint_plain(qf, rlay, n=nn, w=2,
+                                               spec=spec, reverse=True)]
+            for lib in (None, exact):
+                got = [wavefront.soft_cuda(qq, lay, n=nn, w=2, spec=spec,
+                                           lib=lib),
+                       wavefront.soft_cuda(qq, lay, n=nn, w=2, spec=spec,
+                                           checkpoint=True, lib=lib),
+                       wavefront.soft_cuda(qf, rlay, n=nn, w=2, spec=spec,
+                                           reverse=True, lib=lib)]
+                torch.cuda.synchronize()
+                for i, (a, b) in enumerate(zip(got, want)):
+                    cases += 1
+                    ok = bool(torch.allclose(a[0], b[0], rtol=1e-4,
+                                             atol=1e-4))
+                    if i < 2:
+                        ok = ok and torch.equal(a[1], b[1])
+                    if i:
+                        ok = ok and bool(torch.allclose(
+                            a[2], b[2], rtol=1e-4, atol=1e-4))
+                    mismatches += not ok
+    emit({"phase": "k56_parity", "builds": ["as built", "exact"],
+          "cases": cases, "mismatches": mismatches,
+          "rule": "within atol=rtol=1e-4 of the plain version (cost and "
+                  "strips), ends equal"}, log)
+
+    lay = ops.prepare_reference(r, w)
+    rlay = ops.prepare_reference_reverse(r, w)
+    qf = torch.flip(q, (1,)).contiguous()
+    ref = wavefront.soft_cuda(q, lay, n=n, w=w, spec=spec)
+    for warps in (1, 2, 4, 8):
+        out = wavefront.soft_cuda(q, lay, n=n, w=w, spec=spec, warps=warps)
+        torch.cuda.synchronize()
+        geo = wavefront.soft_ring_geometry(m, warps)
+        row = {"phase": "k56_warps", "w": w, "warps": warps,
+               "k5_ms": timed(lambda: wavefront.soft_cuda(
+                   q, lay, n=n, w=w, spec=spec, warps=warps), 2),
+               "ring_rows": geo.ring_rows, "smem_bytes": geo.smem_bytes,
+               "ctas_per_sm": wavefront.soft_occupancy(m, w, warps=warps),
+               "close_to_default": close(out, ref)}
+        if warps in (1, P):
+            row["k6f_ms"] = timed(lambda: wavefront.soft_cuda(
+                q, lay, n=n, w=w, spec=spec, checkpoint=True, warps=warps),
+                2)
+            row["k6r_ms"] = timed(lambda: wavefront.soft_cuda(
+                qf, rlay, n=n, w=w, spec=spec, reverse=True, warps=warps),
+                2)
+        emit(row, log)
+    for ww in wavefront.WIDTHS:
+        if ww == w:
+            continue
+        wlay = ops.prepare_reference(r, ww)
+        row = {"phase": "k56_width", "w": ww}
+        for warps in (4, 8):
+            out = wavefront.soft_cuda(q, wlay, n=n, w=ww, spec=spec,
+                                      warps=warps)
+            torch.cuda.synchronize()
+            row[f"k5_ms_{warps}_warps"] = timed(
+                lambda: wavefront.soft_cuda(q, wlay, n=n, w=ww, spec=spec,
+                                            warps=warps), 2)
+            row[f"ctas_per_sm_{warps}_warps"] = wavefront.soft_occupancy(
+                m, ww, warps=warps)
+            row[f"close_to_w{w}_{warps}_warps"] = close(out, ref)
+        emit(row, log)
+    times = {"built": [], "exact": []}
+    for which in ("built", "exact", "exact", "built"):
+        lib = exact if which == "exact" else None
+        times[which].append(timed(lambda: wavefront.soft_cuda(
+            q, lay, n=n, w=w, spec=spec, lib=lib), 2))
+    out = wavefront.soft_cuda(q, lay, n=n, w=w, spec=spec, lib=exact)
+    torch.cuda.synchronize()
+    diff = (out[0] - ref[0]).abs()
+    emit({"phase": "k56_softmin", "w": w, "built_ms": times["built"],
+          "exact_ms": times["exact"], "max_abs_diff": float(diff.max()),
+          "max_rel_diff": float((diff / out[0].abs()).max()),
+          "ends_equal": int((out[1] == ref[1]).sum()), "queries": B}, log)
+
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    for label, extra in (("as built", ()), ("exact", EXACT)):
+        lib_path = build._target("soft_wavefront", extra)[0]
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for name, rev in (("K5", 0), ("K6-reverse", 1)):
+            entry = next(
+                e for e in re.findall(r"Function : (\S+)", sass)
+                if f"soft_wavefront_kernelILi8ELb{rev}ELb0ELb0E" in e)
+            emit({"phase": "k56_sass", "build": label, "kernel": name,
+                  "w": 8, **steady_loop(sass, entry, "MUFU")}, log)
+    return mismatches
+
+
 def emit(obj, log: list) -> None:
     log.append(obj)
     print(json.dumps(obj), flush=True)
@@ -224,7 +355,8 @@ def main(argv=None) -> int:
     # the two variant builds, side by side
     build._compile({
         "nosync": build._target("wavefront", NO_SYNC),
-        "exact": build._target("soft_family_wavefront", EXACT)})
+        "exact": build._target("soft_family_wavefront", EXACT),
+        "exact_k56": build._target("soft_wavefront", EXACT)})
     nosync = build.library("wavefront", NO_SYNC)
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
@@ -340,6 +472,7 @@ def main(argv=None) -> int:
               **steady_loop(sass, entry, "FMNMX", 16)}, log)
 
     soft_mismatches = soft_k7(log, q, r, series, timed)
+    soft_mismatches += soft_k56(log, q, r, series, timed)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

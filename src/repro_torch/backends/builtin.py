@@ -3,7 +3,9 @@
 * ``ref``    — the torch row-scan oracle (slow, for validation);
 * ``engine`` — the torch anti-diagonal engine;
 * ``kernel`` — the CUDA wavefronts (their plain versions on a CPU
-  tensor); soft-min sdtw specs go through
+  tensor), for queries up to the plan's longest
+  (``wavefront.longest_query``: auto-selection passes longer ones to
+  the engine); soft-min sdtw specs go through
   ``kernels.backward.sdtw_soft_fused`` so that autograd reaches the fused
   reverse-sweep backward; the families run K7, which has no backward:
   a soft family whose operands need a gradient raises, naming the
@@ -45,6 +47,11 @@ def _exec_engine(spec, plan):
         plan.outputs)
 
 
+def _kernel_longest_query(spec, outputs):
+    return ops.wavefront.longest_query(spec,
+                                       with_window="start" in outputs)
+
+
 def _exec_kernel(spec, plan):
     family.refuse_grad(spec, plan.queries, plan.reference)
     if spec.soft and spec.family == "sdtw":
@@ -83,5 +90,6 @@ register(Backend(
     capabilities=Capabilities(
         # no cosine: the JAX kernel declines it too
         distances=frozenset(ops.wavefront.KERNEL_DISTANCES),
-        outputs=_FULL, families=_ALL_FAMILIES),
+        outputs=_FULL, families=_ALL_FAMILIES,
+        longest_query=_kernel_longest_query),
     execute=_exec_kernel))

@@ -5,6 +5,9 @@ Each backend registers a :class:`Capabilities` declaration and an
 :class:`~repro_torch.core.result.SDTWResult`.  ``repro_torch.sdtw``
 resolves a spec, asks the registry for a capable backend and executes;
 an incapable request fails with an error that names who can serve it.
+Auto-selection is shape-aware: given the query length ``m``, a backend
+whose kernels cannot launch that long a query (``longest_query``)
+declines, and the next capable one runs it.
 An alias (``soft``) names a backend with spec fields overridden.
 Counterpart of ``repro.backends.registry``.
 """
@@ -34,10 +37,14 @@ class Capabilities:
     window_families: frozenset = frozenset({"sdtw"})
     #   families it serves the "start" output for (twed / erp starts are
     #   column 0, or NO_WINDOW when the band blocks the corner)
+    longest_query: Callable[[DPSpec, frozenset], int] | None = None
+    #   (spec, requested outputs) -> the longest query it can run; None:
+    #   any length
 
-    def unsupported_reason(self, spec: DPSpec, outputs=None) -> str | None:
-        """None when the spec (and every requested output) is
-        executable, else a short reason."""
+    def unsupported_reason(self, spec: DPSpec, outputs=None,
+                           m: int | None = None) -> str | None:
+        """None when the spec (and every requested output, at query
+        length ``m`` when given) is executable, else a short reason."""
         if spec.family not in self.families:
             return f"family {spec.family!r}"
         if spec.distance not in self.distances:
@@ -72,6 +79,13 @@ class Capabilities:
                         "expected alignment needs a softmin spec "
                         "(reduction='softmin'; hard-min paths are "
                         "outputs=('path',))")
+        if m is not None and self.longest_query is not None:
+            req = frozenset() if outputs is None \
+                else normalize_outputs(outputs)
+            longest = self.longest_query(spec, req)
+            if m > longest:
+                return (f"query length m={m} (its kernel launches queries "
+                        f"of up to {longest} samples for this plan)")
         return None
 
 
@@ -157,15 +171,17 @@ def get(name: str) -> Backend:
 
 
 def capable(spec: DPSpec, *, outputs=None,
-            device: torch.device = torch.device("cpu")) -> list[str]:
-    """Backends able to execute ``spec`` and every requested output, in
-    the device's preference order."""
+            device: torch.device = torch.device("cpu"),
+            m: int | None = None) -> list[str]:
+    """Backends able to execute ``spec`` and every requested output (on
+    queries of length ``m`` when given), in the device's preference
+    order."""
     _ensure_builtins()
     ordered = [n for n in _priority(device) if n in _REGISTRY]
     ordered += [n for n in sorted(_REGISTRY) if n not in ordered]
     return [n for n in ordered
             if _REGISTRY[n].capabilities.unsupported_reason(
-                spec, outputs=outputs) is None]
+                spec, outputs=outputs, m=m) is None]
 
 
 def resolve(name: str, spec: DPSpec, *, outputs=None,
@@ -183,9 +199,13 @@ def resolve(name: str, spec: DPSpec, *, outputs=None,
 
 
 def select(spec: DPSpec, *, outputs=None,
-           device: torch.device = torch.device("cpu")) -> Backend:
-    """The first capable backend in the device's preference order."""
-    choices = capable(spec, outputs=outputs, device=device)
+           device: torch.device = torch.device("cpu"),
+           m: int | None = None) -> Backend:
+    """The first capable backend in the device's preference order; with
+    the query length ``m``, one that can run queries that long (a named
+    backend, :func:`resolve`, is not asked: the kernel raises its own
+    shaped error)."""
+    choices = capable(spec, outputs=outputs, device=device, m=m)
     if not choices:
         what = f"spec {spec.describe()}"
         if outputs is not None:

@@ -102,8 +102,11 @@ def sdtw(queries, reference, *,
     ``gamma`` / ``band`` / ``family`` and the family parameters ``nu`` /
     ``lam`` (twed), ``gap`` (erp), ``gap_penalty`` / ``match_reward``
     (local) override its fields.
-    ``backend=None`` picks the first capable backend for the device;
-    ``backend="soft"`` is the engine under soft-min.
+    ``backend=None`` picks the first capable backend for the device and
+    the query length (on the card the kernel, or the engine for queries
+    longer than the kernel can launch); a named backend runs every
+    length it can or raises; ``backend="soft"`` is the engine under
+    soft-min.
     ``segment_width`` is the kernel's reference cells per lane, one of
     ``repro_torch.kernels.ops.DEFAULT_WIDTH_CANDIDATES``.
     """
@@ -119,7 +122,8 @@ def sdtw(queries, reference, *,
     r = as_f32(reference, dev)
     validate_batch_inputs(q, r)
     if backend is None:
-        impl = registry.select(resolved, outputs=req, device=dev)
+        impl = registry.select(resolved, outputs=req, device=dev,
+                               m=q.shape[1])
     else:
         name, resolved = registry.expand(backend, resolved)
         impl = registry.resolve(name, resolved, outputs=req, device=dev)

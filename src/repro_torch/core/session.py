@@ -16,9 +16,11 @@ cached; each call normalizes its queries (one K2 launch) and runs one
 sweep (one wavefront launch: K1/K3/K4, K5 under soft-min, K7 for a
 recurrence family, given ``spec=DPSpec(family=...)``).  A soft-min call that autograd
 must differentiate, or that asks for ``soft_alignment`` (over the
-cached layouts), runs the K6 pair instead.  PyTorch runs eagerly, so
-there is no executable cache: :class:`AlignerStats` counts calls and
-layout builds only.
+cached layouts), runs the K6 pair instead.  A session that picked its
+backend itself (``backend=None``) runs a batch whose queries are longer
+than the kernel can launch on the next capable backend (the engine) for
+that call.  PyTorch runs eagerly, so there is no executable cache:
+:class:`AlignerStats` counts calls and layout builds only.
 """
 
 from __future__ import annotations
@@ -84,6 +86,9 @@ class Aligner:
         hint = None if outputs is None else normalize_outputs(outputs)
         if hint is not None:
             check_ported_outputs(hint, self.spec)
+        # chosen before any query exists: align() re-asks the registry
+        # with the query length when the session chose it itself
+        self.auto_backend = backend is None
         if backend is None:
             self.backend = registry.select(self.spec, outputs=hint,
                                            device=self.device)
@@ -131,11 +136,16 @@ class Aligner:
                          device=self.device)
         q = as_f32(queries, self.device)
         validate_batch_inputs(q, self.reference)
+        impl = self.backend
+        if self.auto_backend and impl.capabilities.unsupported_reason(
+                self.spec, outputs=req, m=q.shape[1]) is not None:
+            impl = registry.select(self.spec, outputs=req,
+                                   device=self.device, m=q.shape[1])
         self.stats.calls += 1
         if self.normalize:
             q = normalize_batch(q)
-        if self.backend.name != "kernel":
-            return execute(self.backend, self.spec, q, self.reference, req,
+        if impl.name != "kernel":
+            return execute(impl, self.spec, q, self.reference, req,
                            self.segment_width)
         if "soft_alignment" in req or (
                 self.spec.soft and torch.is_grad_enabled() and (

@@ -6,7 +6,8 @@ headers, so a build takes seconds, not minutes); ``wavefront.cu`` gives
 three, its hard-min half, the same under ``-DREPRO_BF16`` (bf16-K1) and,
 under ``-DREPRO_SOFT``, its soft-min half; ``family_wavefront.cu`` (K7)
 gives two, hard-min and ``-DREPRO_SOFT``; both sources include
-``csrc/ring.cuh``.  Every library is compiled by its own ``nvcc``
+``csrc/ring.cuh``, and both soft builds ``csrc/softmin.cuh``.  Every
+library is compiled by its own ``nvcc``
 process, all started together.  Libraries go to ``build/repro_torch/``
 at the repository root, named by a hash of the source, the headers, the
 flags and ``nvcc --version``, so neither an edited source nor another
@@ -101,7 +102,7 @@ def _target(name: str, extra: tuple = ()) -> tuple[Path, Path, list[str]]:
     source, flags0 = TARGETS[name]
     src = CSRC / source
     flags = ARCH + COMMON + flags0 + list(extra)
-    # the headers every source may include (csrc/ring.cuh) are hashed too
+    # the headers a source may include (csrc/*.cuh) are hashed too
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(flags).encode()

@@ -362,29 +362,22 @@ int family_wavefront_launch(const void* q, const void* r, const void* rx,
 //     column n-1 nor padding, and (banded) every cell of the block lies in
 //     the band.  Steady blocks carry no row, column, live, band or fold
 //     edge test; the others (EDGE) test everything, as family_cell does.
-//   * The soft-min.  mn - gamma*log(sum exp((mn - x)/gamma)) in min-shifted
-//     form with the min's own term fixed at 1: s = 1 + e1 + e2, two
-//     exponentials and one logarithm a reduce3 (one and one a reduce2).
-//     The arguments are pre-scaled by log2(e)/gamma, so that each
-//     exponential is one MUFU ex2.approx, and the logarithm is one
-//     lg2.approx times gamma*ln 2.  The two operands that do not depend on
-//     the left neighbour (up, upleft) are ordered off the chain; the left
-//     one costs two min/max on it.  Soft local's per-lane running
-//     logsumexp (base 2) rescales only when its running max moves, one
-//     exponential a cell, and the per-warp (max, sum) pairs are merged
-//     through shared memory after the sweep.  -DREPRO_EXACT_SOFTMIN swaps
-//     in CUDA's full-accuracy exp2f / log2f (scripts/wavefront_variants.py
-//     builds it to measure the approximation).
+//   * The soft-min is csrc/softmin.cuh's, shared with K5/K6: the min's
+//     own term fixed at 1, two MUFU ex2.approx and one lg2.approx a
+//     reduce3 (one and one a reduce2) on arguments pre-scaled by
+//     log2(e)/gamma (-DREPRO_EXACT_SOFTMIN: full accuracy).  The two
+//     operands that do not depend on the left neighbour (up, upleft) are
+//     ordered off the chain; the left one costs two min/max on it.  Soft
+//     local's per-lane running logsumexp (base 2) rescales only when its
+//     running max moves, one exponential a cell, and the per-warp (max,
+//     sum) pairs are merged through shared memory after the sweep.
 //   * Sentinel SOFT_BIG = 1e30, finite: exp2 of -SOFT_BIG*log2(e)/gamma
 //     is 0, never NaN.
 // Exactness: held to the plain version within atol = rtol = 1e-4, with
 // equal ends (transcendentals and fused multiply-adds round differently).
 
 #include "ring.cuh"
-
-#ifndef REPRO_EXACT_SOFTMIN
-#define REPRO_EXACT_SOFTMIN 0
-#endif
+#include "softmin.cuh"
 
 namespace {
 
@@ -402,37 +395,6 @@ struct Params {
   float k2;      // log2(e) / gamma: exp(-x / gamma) = exp2(-x * k2)
   float gl;      // gamma * ln 2: gamma * log(s) = gl * log2(s)
 };
-
-__device__ __forceinline__ float ex2(float x) {
-#if REPRO_EXACT_SOFTMIN
-  return exp2f(x);
-#else
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-#endif
-}
-
-__device__ __forceinline__ float lg2(float x) {
-#if REPRO_EXACT_SOFTMIN
-  return log2f(x);
-#else
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-#endif
-}
-
-// DPSpec.reduce3 under soft-min.  a: the left operand (on the chain);
-// b, c: up and upleft.  With lo, hi = min, max(b, c), the minimum is
-// min(a, lo) and the other two are hi and max(a, lo).
-__device__ __forceinline__ float smin3(float a, float b, float c,
-                                       const Params& p) {
-  const float lo = fminf(b, c), hi = fmaxf(b, c);
-  const float mn = fminf(a, lo), o2 = fmaxf(a, lo);
-  const float s = 1.f + ex2((mn - hi) * p.k2) + ex2((mn - o2) * p.k2);
-  return fmaf(-p.gl, lg2(s), mn);
-}
 
 // DPSpec.reduce2(v, 0), local's restart floor:
 // min(v, 0) - gamma * log(1 + exp(-|v| / gamma)).
@@ -556,7 +518,7 @@ __device__ __forceinline__ void step(Lane<W>& L, int t, int u, int lane,
         }
       }
     }
-    float val = smin3(left_b + tl, up_b + tup, ul_b + td, p);
+    float val = smin3(left_b + tl, up_b + tup, ul_b + td, p.k2, p.gl);
     if constexpr (FAM == kLocal) val = smin0(val, p);
     if (EDGE) {
       if (BAND && abs(i - j) > band) {

@@ -1,6 +1,6 @@
 // The shared-memory ring that passes a chunk's right boundary column to
 // the warp that sweeps the next chunk, for the multi-warp wavefronts of
-// csrc/wavefront.cu (hard-min, K1/K3/K4 and bf16-K1) and
+// csrc/wavefront.cu (hard-min, K1/K3/K4 and bf16-K1; soft-min, K5/K6) and
 // csrc/family_wavefront.cu (soft-min K7).
 //
 // Each link (warp p to warp (p+1) mod P) has its own ring of slots; a slot
@@ -8,9 +8,9 @@
 // count 1).  The producer's lane 31 arrives on full after storing a
 // group's rows, the consumer's lane 0 arrives on empty after its last read
 // of the group, and the whole warp waits with try_wait.parity.  RingWalk
-// is the schedule both kernels walk (csrc/wavefront.cu explains it and
-// its rules; tests/test_torch_wavefront_design.py models it); each kernel
-// keeps only its own step and cell.
+// is the schedule every multi-warp kernel walks (csrc/wavefront.cu
+// explains it and its rules; tests/test_torch_wavefront_design.py models
+// it); each kernel keeps only its own step and cell.
 
 #pragma once
 

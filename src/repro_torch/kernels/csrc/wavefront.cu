@@ -8,9 +8,8 @@
 //     width W, window, band, distance).
 //   * soft-min (this file built with -DREPRO_SOFT as libsoft_wavefront,
 //     see the second half): SoftMinFold (K5), its checkpoint=True
-//     boundary strips and its reverse=True sweep (K6).  It keeps the
-//     one-warp-per-query design with a double-buffered strip that its
-//     own comment describes.
+//     boundary strips and its reverse=True sweep (K6), on the hard-min
+//     kernel's multi-warp design with soft cells.
 //   * bf16-K1 (the hard-min half built with -DREPRO_BF16 as
 //     libwavefront_bf16): K1/K3/K4 under compute_dtype=bfloat16
 //     (CarryChannel.reg_dtype, :132-134), see bf16() below.
@@ -61,8 +60,8 @@
 //     its CTA only at the final __syncthreads.  Sizes come from the host
 //     (kernels/wavefront.py::hard_geometry).  The mbarrier helpers, the
 //     Ring / Cursor types and the walk itself (RingWalk) live in
-//     csrc/ring.cuh, shared with the soft-min K7 of
-//     csrc/family_wavefront.cu.
+//     csrc/ring.cuh, shared with the soft-min half of this file (K5/K6)
+//     and the soft-min K7 of csrc/family_wavefront.cu.
 //   * The query row is staged once in shared memory, padded by 32 zeros
 //     on each side so that rows outside [0, m) need no clamp; each lane
 //     loads its next step's sample one step ahead, as lane 0 does its
@@ -506,30 +505,55 @@ int wavefront_occupancy(int m, int width, int window, int banded,
 // repro/kernels/backward.py::_checkpoint_sweeps.
 //
 // What bounds it on an H100: the special-function units.  Every cell is
-// cost + mn - g*log(exp((mn-a)/g) + exp((mn-b)/g) + exp((mn-c)/g)), with
-// mn the min of its three predecessors.  The min's own term is exp(0) = 1,
-// so the function needs two exponentials and a logarithm (this kernel
-// evaluates all three expf), issued by 16 MUFU lanes per SM per clock
-// against 128 FP32 lanes.  Bytes moved are small (the queries, the reference, three numbers
-// per query and, for K6, one checkpoint column per chunk).
+// cost + smin(left, up, upleft), a min-shifted logsumexp whose own term is
+// exp(0) = 1, so two exponentials and one logarithm a cell, issued by 16
+// MUFU lanes per SM per clock against 128 FP32 lanes.  Bytes moved are
+// small: the queries, the reference, three numbers per query and, for K6,
+// one checkpoint column of m floats per visited chunk.
 //
-// Design: the hard kernel's (one warp per query, W cells per lane in
-// registers, __shfl_up_sync for the left neighbour, a double-buffered
-// shared-memory strip for the chunk boundary), with:
-//   * sentinel SOFT_BIG = 1e30 everywhere (prev[] init, lane 0's column -1,
-//     out-of-band and pad cells), finite so that -SOFT_BIG/g stays finite
-//     and no inf - inf enters the min-shifted logsumexp;
-//   * expf / logf, CUDA's full-accuracy library functions (not the
-//     __expf / __logf intrinsics): the kernel is held to the plain version
-//     within 1e-4, the bar the JAX package holds its soft kernel to;
-//   * fold: each lane keeps a running (max, scaled sum) of -D[m-1, j]/g
-//     over its bottom-row cells, merged across the warp by shuffles into
-//     -g*(max + log(sum)), beside the hard (value, column) twin that gives
-//     `end` (earliest column on a tie) and detects a blocked band
-//     (best >= SOFT_BIG/2 -> +inf);
-//   * checkpoint (ckpt != nullptr): at the start of each chunk the warp
-//     copies the strip it is about to read, the previous chunk's last
-//     column (SOFT_BIG for the first chunk), to ckpt[b, c, :];
+// Design: the hard-min kernel's (first half of this file), with soft
+// cells.
+//   * One CTA of P warps (P <= 8) per query; the visited chunks
+//     [chunk0, chunk0 + chunks) are dealt to the warps round-robin (warp p
+//     sweeps visited chunks chunk0 + p, chunk0 + p + P, ...), lane l of
+//     the warp that sweeps chunk c owns columns c*32*W + l*W + k, and at
+//     step t computes row i = t - l.  Lane 31's last cell of each row goes
+//     to the next chunk's warp through the shared-memory ring of
+//     csrc/ring.cuh (32-row groups, a full/empty mbarrier pair each, one
+//     f32 a row), walked by RingWalk as K1/K3 and soft K7 walk it: in each
+//     ring step the arrivals come before the waits, the last visited chunk
+//     writes no ring and the first reads none, a warp with no chunk
+//     touches no mbarrier.  Lane 0 keeps its upleft as the previous step's
+//     left.  Sizes come from the host (kernels/wavefront.py::
+//     soft_ring_geometry).
+//   * The query (flipped for the reverse sweep) is staged once in shared
+//     memory, padded with 32 zeros on each side; each lane loads its next
+//     step's sample one step ahead.
+//   * The soft-min is csrc/softmin.cuh's, shared with soft K7: the min's
+//     own term fixed at 1, two MUFU ex2.approx and one lg2.approx a cell
+//     on arguments pre-scaled by log2(e)/gamma (-DREPRO_EXACT_SOFTMIN:
+//     full accuracy).  Sentinel SOFT_BIG = 1e30 everywhere (prev[] init,
+//     lane 0's column -1, out-of-band and pad cells), finite, so that no
+//     inf - inf enters the soft-min.
+//   * Blocks of 32 steps, opened by the ring step.  A block is steady when
+//     it meets neither row 0 nor row m-1 (nor rows outside [0, m)), its
+//     chunk holds no reverse padding, and (banded) every cell of the
+//     block lies in the band.  Steady blocks carry no row, pad, band or
+//     fold test; the others (EDGE) test everything.
+//   * Folds: each lane keeps a running base-2 logsumexp pair (max, scaled
+//     sum) of -D[m-1, j] * log2(e)/gamma over its bottom-row cells,
+//     rescaled only when its max moves (one exponential a cell), beside
+//     the hard (value, column) twin that gives `end` and detects a blocked
+//     band (best >= SOFT_BIG/2 -> +inf).  After the sweep both are merged
+//     by shuffles within each warp and through shared memory across the
+//     warps: the earliest column wins a tie, the pairs by the running-max
+//     rule; cost = best - gamma * ln 2 * log2(sum), the minimum read out
+//     exactly (the soft-DTW gradient divides cost errors by gamma).
+//   * Checkpoint (ckpt != nullptr, K6): the column entering visited chunk
+//     c is exactly what the chunk's lane 0 reads from the ring.  Each
+//     group of 32 rows is written to ckpt[b, c, :] by the whole warp,
+//     coalesced, as the group is taken from the ring; the first visited
+//     chunk writes SOFT_BIG.
 //   * REVERSE: B[i,j] = C[i,j] + smin(B[i,j+1], B[i+1,j], B[i+1,j+1]) run as
 //     a forward sweep over flipped queries x the flipped, left-padded
 //     reference.  The forward boundary rules are mirrored, not re-used:
@@ -544,161 +568,327 @@ int wavefront_occupancy(int m, int width, int window, int banded,
 //     row 0) over the real columns: it equals the forward cost.
 // Columns of the forward sweep at j >= jlim (= n) are computed from the
 // zero padding and never folded; they only feed columns to their right.
-// Exactness: the soft cells are not bit-equal to the plain version
-// (transcendentals and fused multiply-adds round differently); the plain
-// version agrees within 1e-4.
+// Exactness: the soft cells are not bit-equal to the plain version (the
+// transcendentals round differently; where they underflow, as at small
+// gamma, the cells agree bit for bit); they are held to it within
+// atol = rtol = 1e-4, with equal ends.
+
+#include "softmin.cuh"
 
 namespace {
 
 constexpr float kSoftBig = 1e30f;   // SOFT_BIG of repro/core/spec.py
+constexpr int kMaxWarps = 8;        // warps per CTA (kernels/wavefront.py)
+constexpr int kQPad = 32;           // zeros each side of the staged query
 
-__device__ __forceinline__ float softmin3(float a, float b, float c,
-                                          float gamma, float inv_gamma) {
-  const float mn = fminf(fminf(a, b), c);
-  const float s = expf((mn - a) * inv_gamma) + expf((mn - b) * inv_gamma) +
-                  expf((mn - c) * inv_gamma);
-  return mn - gamma * logf(s);
+struct SoftParams {
+  float k2;      // log2(e) / gamma: exp(-x / gamma) = exp2(-x * k2)
+  float gl;      // gamma * ln 2: gamma * log(s) = gl * log2(s)
+};
+
+// One warp's registers: its W columns of the current chunk, the carries
+// of the anti-diagonal, and its running folds.
+template <int W>
+struct SoftLane {
+  float rv[W];      // reference samples of my W columns
+  float prev[W];    // row i-1 of my W cells
+  float left, upleft, qv;
+  float best_v;     // hard twin: (value, column) minimum
+  int best_j;
+  float run_m, run_s;  // running logsumexp pair, base 2
+};
+
+// What one step reads and writes outside the warp's registers: the ring
+// slots (RingIO, csrc/ring.cuh) and qrow, the staged query at
+// sq + kQPad + 1 - lane, so qrow[t] is my next step's sample.
+struct SoftStepIO : RingIO {
+  const float* qrow;
+};
+
+// A bottom-row cell into the lane's folds: the (value, column) minimum
+// (columns arrive in ascending order, so strict < keeps the earliest),
+// and the running logsumexp of -val * k2, rescaled only when its max
+// moves.
+template <int W>
+__device__ __forceinline__ void fold_cell(SoftLane<W>& L, float val, int j,
+                                          const SoftParams& p) {
+  if (val < L.best_v) {
+    L.best_v = val;
+    L.best_j = j;
+  }
+  const float x = -__fmul_rn(val, p.k2);    // rounded as the readout's
+  const float d = x - L.run_m;
+  const float e = ex2(-fabsf(d));
+  L.run_s = d > 0.f ? fmaf(L.run_s, e, 1.f) : L.run_s + e;
+  L.run_m = fmaxf(L.run_m, x);
+}
+
+// One step of one chunk: lane l computes row i = t - l of its W columns.
+// EDGE: every row, pad, band and fold test is on; a steady block (EDGE
+// false) tests nothing.  The cell rounds cost + smin as the plain version
+// rounds cost + reduce3 (__fmul_rn / __fadd_rn, no fused multiply-add):
+// where the soft terms underflow (small gamma) the two agree bit for bit,
+// which the gradient's E = exp((cost - F - B + C) / gamma) needs.
+template <int W, bool REVERSE, bool BAND, bool ABS, bool EDGE>
+__device__ __forceinline__ void soft_step(SoftLane<W>& L, int t, int u,
+                                          int lane, int j0, int m, int jlim,
+                                          int band, int shift,
+                                          const SoftStepIO& io,
+                                          const SoftParams& p) {
+  const int i = t - lane;
+  const float qv = L.qv;
+  L.qv = io.qrow[t];                        // next step's sample
+  float next_left = kSoftBig;               // lane 0's next left neighbour
+  if (io.reads && (!EDGE || t + 1 < m)) next_left = io.rd[u];
+  float lft = L.left, ul = L.upleft;
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int j = j0 + k;
+    const float d = qv - L.rv[k];
+    const float cst = ABS ? fabsf(d) : __fmul_rn(d, d);
+    const float up = L.prev[k];
+    float val;
+    if (!EDGE) {
+      val = __fadd_rn(cst, smin3(lft, up, ul, p.k2, p.gl));
+    } else if (REVERSE) {
+      val = __fadd_rn(cst, smin3(i == m - 1 ? kSoftBig : lft,
+                                 i == 0 ? kSoftBig : up, i == 0 ? 0.f : ul,
+                                 p.k2, p.gl));
+      if (j < jlim) val = kSoftBig;         // padding: original j >= n
+    } else {
+      // free start: D[-1, j] = 0
+      val = i == 0 ? cst
+                   : __fadd_rn(cst, smin3(lft, up, ul, p.k2, p.gl));
+    }
+    if (EDGE) {
+      if (BAND && abs(i - j - shift) > band) {
+        val = kSoftBig;                     // out of band: never folded
+      } else if (i == m - 1 && (REVERSE ? j >= jlim : j < jlim)) {
+        fold_cell(L, val, j, p);
+      }
+    }
+    ul = up;
+    L.prev[k] = val;
+    lft = val;
+  }
+  // my last cell is the left neighbour of lane+1's first cell next step
+  const float from_left = __shfl_up_sync(kFull, lft, 1);
+  if (io.writes && (!EDGE || (i >= 0 && i < m))) io.wr[u] = lft;
+  L.upleft = L.left;
+  L.left = lane == 0 ? next_left : from_left;
+  // the hard-min kernel's per-step barrier, kept for the same reason
+  __syncwarp();
+}
+
+// K6: the warp copies the ring group it has just taken (rows 32g ..
+// 32g + 31 of the column entering its chunk) to the chunk's strip.
+__device__ __forceinline__ void checkpoint_group(float* strip, int g,
+                                                 int lane, int m,
+                                                 const float* rd) {
+  const int row = g * kGroup + lane;
+  if (row < m) strip[row] = rd[lane];
 }
 
 template <int W, bool REVERSE, bool BAND, bool ABS>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(32 * kMaxWarps, 1)
 soft_wavefront_kernel(const float* __restrict__ q,
                       const float* __restrict__ r, int m, int jlim,
-                      int chunk0, int chunks, int band, int shift,
-                      float gamma, float* __restrict__ cost_out,
+                      int chunk0, int chunks, int band, int shift, int slots,
+                      SoftParams p, float* __restrict__ cost_out,
                       int* __restrict__ end_out, float* __restrict__ ckpt) {
-  extern __shared__ float strip[];            // [2][m]
-  const int lane = threadIdx.x;
+  // [warps][slots][2] mbarriers | query [m + 64] f32 | rings [warps]
+  // [slots * 32] f32
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float fold_v[kMaxWarps], fold_m[kMaxWarps], fold_s[kMaxWarps];
+  __shared__ int fold_j[kMaxWarps];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ring_rows = slots * kGroup;
+  const int padded = m + 2 * kQPad;
+  const int groups = (m + kGroup - 1) / kGroup;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* sq = reinterpret_cast<float*>(bars + 2 * warps * slots);
+  float* ring_v = sq + padded;
+
   const float* qb = q + static_cast<size_t>(blockIdx.x) * m;
-  const float inv_gamma = 1.0f / gamma;
+  for (int x = threadIdx.x; x < padded; x += blockDim.x) {
+    const int i = x - kQPad;
+    sq[x] = (i >= 0 && i < m) ? qb[i] : 0.f;
+  }
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 2 * warps * slots; ++k) mbar_init(bars + k, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-  float prev[W];                              // row i-1 of my W cells
-  float best_v = kSoftBig;                    // hard twin: end, blocked
-  int best_j = 0;
-  float run_m = -kSoftBig, run_s = 0.f;       // running logsumexp pair
+  auto ring = [&](int link) {
+    return Ring{ring_v + link * ring_rows, nullptr, bars + 2 * link * slots};
+  };
+  RingWalk<false> walk{ring(warp), ring((warp + 1) % warps), slots, groups,
+                       lane};
 
-  for (int c = 0; c < chunks; ++c) {
-    const int j0 = ((chunk0 + c) * 32 + lane) * W;
-    float rv[W];
+  SoftLane<W> L;
+  L.best_v = kSoftBig;
+  L.best_j = 0;
+  L.run_m = -kSoftBig;                      // finite: no -inf - -inf
+  L.run_s = 0.f;
+  SoftStepIO io;
+  io.qrow = sq + kQPad + 1 - lane;
+
+  // c: the visited chunk (0 .. chunks-1), chunk0 + c the layout's chunk
+  for (int c = warp; c < chunks; c += warps) {
+    walk.open_chunk(c, chunks, io);
+    const int cj0 = (chunk0 + c) * 32 * W, cj1 = cj0 + 32 * W - 1;
+    const int j0 = cj0 + lane * W;
+    // the reverse sweep's padding lies in its first layout chunk
+    const bool edge_chunk = REVERSE && cj0 < jlim;
+    float* strip = ckpt == nullptr
+                       ? nullptr
+                       : ckpt + (static_cast<size_t>(blockIdx.x) * chunks + c) *
+                                    static_cast<size_t>(m);
 #pragma unroll
     for (int k = 0; k < W; ++k) {
-      rv[k] = r[j0 + k];
-      prev[k] = kSoftBig;
+      L.rv[k] = r[j0 + k];
+      L.prev[k] = kSoftBig;
     }
-    const float* rd = strip + (c & 1) * m;
-    float* wr = strip + ((c + 1) & 1) * m;
-    if (ckpt != nullptr) {
-      float* out = ckpt + (static_cast<size_t>(blockIdx.x) * chunks + c) * m;
-      for (int i = lane; i < m; i += 32) out[i] = c > 0 ? rd[i] : kSoftBig;
+    L.left = kSoftBig;                      // column -1 edge sentinel
+    if (walk.first_group(io)) {
+      if (lane == 0) L.left = io.rd[0];
+      if (strip != nullptr) checkpoint_group(strip, 0, lane, m, io.rd);
+    } else if (strip != nullptr) {
+      for (int x = lane; x < m; x += 32) strip[x] = kSoftBig;
     }
+    L.upleft = kSoftBig;
+    L.qv = sq[kQPad - lane];
 
-    float left = (lane == 0 && c > 0) ? rd[0] : kSoftBig;
-    float upleft = kSoftBig;
-
-    for (int t = 0; t < m + 31; ++t) {
-      const int i = t - lane;
-      const float qv = qb[min(max(i, 0), m - 1)];
-      float lft = left, ul = upleft;
-#pragma unroll
-      for (int k = 0; k < W; ++k) {
-        const int j = j0 + k;
-        const float d = qv - rv[k];
-        const float cst = ABS ? fabsf(d) : d * d;
-        const float up = prev[k];
-        float val;
-        if (REVERSE) {
-          val = cst + softmin3(i == m - 1 ? kSoftBig : lft,
-                               i == 0 ? kSoftBig : up, i == 0 ? 0.f : ul,
-                               gamma, inv_gamma);
-          if (j < jlim) val = kSoftBig;       // padding: original j >= n
-        } else {
-          // free start: D[-1, j] = 0
-          val = i == 0 ? cst : cst + softmin3(lft, up, ul, gamma, inv_gamma);
-        }
-        if (BAND && abs(i - j - shift) > band) {
-          val = kSoftBig;                     // out of band: never folded
-        } else if (i == m - 1 && (REVERSE ? j >= jlim : j < jlim)) {
-          if (val < best_v) {                 // strict: earliest column
-            best_v = val;
-            best_j = j;
-          }
-          const float x = -val * inv_gamma;
-          const float mx = fmaxf(run_m, x);
-          run_s = run_s * expf(run_m - mx) + expf(x - mx);
-          run_m = mx;
-        }
-        ul = up;
-        prev[k] = val;
-        lft = val;
+    // blocks of 32 steps, opened by the ring step (RingWalk)
+    for (int g = 0; 32 * g - 1 < m + 31; ++g) {
+      const int t0 = 32 * g - 1;
+      if (g > 0) {
+        walk.open_block(g, io);
+        if (strip != nullptr && walk.has_in && g < groups)
+          checkpoint_group(strip, g, lane, m, io.rd);
       }
-      // my last cell is the left neighbour of lane+1's first cell next step
-      const float from_left = __shfl_up_sync(kFull, lft, 1);
-      if (lane == 31 && i >= 0 && i < m) wr[i] = lft;
-      upleft = left;
-      if (lane == 0) {
-        left = (c > 0 && t + 1 < m) ? rd[t + 1] : kSoftBig;
+      // rows t0-31 .. t0+31 meet neither row 0 nor row m-1; under a band,
+      // every cell of the block is in it
+      bool steady = !edge_chunk && g >= 2 && t0 + 31 < m - 1;
+      if (BAND)
+        steady = steady && t0 + 31 - cj0 - shift <= band &&
+                 cj1 + shift - (t0 - 31) <= band;
+      if (steady) {
+#pragma unroll 2
+        for (int u = 0; u < kGroup; ++u)
+          soft_step<W, REVERSE, BAND, ABS, false>(L, t0 + u, u, lane, j0, m,
+                                                  jlim, band, shift, io, p);
       } else {
-        left = from_left;
+        const int u1 = min(kGroup, m + 31 - t0);
+        for (int u = g == 0 ? 1 : 0; u < u1; ++u)
+          soft_step<W, REVERSE, BAND, ABS, true>(L, t0 + u, u, lane, j0, m,
+                                                 jlim, band, shift, io, p);
       }
-      // The per-step barrier of the hard kernel, kept for the same reason:
-      // without it nvcc 12.8 miscompiled the strip store there.
-      __syncwarp();
     }
-    __syncwarp();
+    walk.close_chunk();
   }
 
-  // merge the lanes: lexicographic (value, column) for the hard twin, the
+  // merge the lanes of each warp by shuffles, then the warps through
+  // shared memory: lexicographic (value, column) for the hard twin, the
   // running-max rule for the logsumexp pairs
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(kFull, best_v, off);
-    const int oj = __shfl_down_sync(kFull, best_j, off);
-    const float om = __shfl_down_sync(kFull, run_m, off);
-    const float os = __shfl_down_sync(kFull, run_s, off);
-    if (ov < best_v || (ov == best_v && oj < best_j)) {
-      best_v = ov;
-      best_j = oj;
+    const float ov = __shfl_down_sync(kFull, L.best_v, off);
+    const int oj = __shfl_down_sync(kFull, L.best_j, off);
+    const float om = __shfl_down_sync(kFull, L.run_m, off);
+    const float os = __shfl_down_sync(kFull, L.run_s, off);
+    if (ov < L.best_v || (ov == L.best_v && oj < L.best_j)) {
+      L.best_v = ov;
+      L.best_j = oj;
     }
-    const float mx = fmaxf(run_m, om);
-    run_s = run_s * expf(run_m - mx) + os * expf(om - mx);
-    run_m = mx;
+    const float mx = fmaxf(L.run_m, om);
+    L.run_s = L.run_s * exp2f(L.run_m - mx) + os * exp2f(om - mx);
+    L.run_m = mx;
   }
   if (lane == 0) {
-    cost_out[blockIdx.x] = best_v >= 0.5f * kSoftBig
-                               ? INFINITY
-                               : -gamma * (run_m + logf(run_s));
-    end_out[blockIdx.x] = best_j;
+    fold_v[warp] = L.best_v;
+    fold_j[warp] = L.best_j;
+    fold_m[warp] = L.run_m;
+    fold_s[warp] = L.run_s;
   }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  float bv = fold_v[0], rm = fold_m[0], rs = fold_s[0];
+  int bj = fold_j[0];
+  for (int w = 1; w < warps; ++w) {
+    if (fold_v[w] < bv || (fold_v[w] == bv && fold_j[w] < bj)) {
+      bv = fold_v[w];
+      bj = fold_j[w];
+    }
+    const float mx = fmaxf(rm, fold_m[w]);
+    rs = rs * exp2f(rm - mx) + fold_s[w] * exp2f(fold_m[w] - mx);
+    rm = mx;
+  }
+  // -gamma ln 2 (rm + log2(rs)) with the minimum read out exactly: rm is
+  // the best cell's -bv * k2, rounded as fold_cell rounded it, so
+  // rm + bv * k2 is 0 and bv stands for -gl * rm without the rounding of
+  // gl * k2 (up to 1e-7 relative, which E multiplies by 1 / gamma); only
+  // the soft correction goes through gl
+  cost_out[blockIdx.x] =
+      bv >= 0.5f * kSoftBig
+          ? INFINITY
+          : bv - p.gl * (log2f(rs) + (rm + __fmul_rn(bv, p.k2)));
+  end_out[blockIdx.x] = bj;
 }
 
+// Dynamic shared memory of one CTA; kernels/wavefront.py::
+// soft_ring_geometry computes the same number.
+size_t soft_smem_bytes(int m, int warps, int slots) {
+  return 16 * static_cast<size_t>(warps) * slots +
+         4 * (static_cast<size_t>(m) + 2 * kQPad) +
+         4 * static_cast<size_t>(warps) * slots * kGroup;
+}
+
+// What an entry asks of an instantiation: op 0 launches, op 1 returns the
+// CTAs resident per SM (or -error).
+struct SoftCall {
+  int op;
+  const float *q, *r;
+  int batch, m, jlim, chunk0, chunks, band, shift, warps, slots;
+  SoftParams p;
+  float* cost;
+  int* end;
+  float* ckpt;
+  cudaStream_t stream;
+};
+
 template <int W, bool REVERSE, bool BAND, bool ABS>
-int soft_launch(const float* q, const float* r, int batch, int m, int jlim,
-                int chunk0, int chunks, int band, int shift, float gamma,
-                float* cost, int* end, float* ckpt, cudaStream_t stream) {
-  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(m);
+int soft_run(const SoftCall& a) {
+  const size_t smem = soft_smem_bytes(a.m, a.warps, a.slots);
   auto kernel = soft_wavefront_kernel<W, REVERSE, BAND, ABS>;
+  cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess)
+      return a.op == 0 ? static_cast<int>(err) : -static_cast<int>(err);
   }
-  kernel<<<batch, 32, smem, stream>>>(q, r, m, jlim, chunk0, chunks, band,
-                                      shift, gamma, cost, end, ckpt);
+  if (a.op == 1) {
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        32 * a.warps, smem);
+    return err == cudaSuccess ? blocks : -static_cast<int>(err);
+  }
+  kernel<<<a.batch, 32 * a.warps, smem, a.stream>>>(
+      a.q, a.r, a.m, a.jlim, a.chunk0, a.chunks, a.band, a.shift, a.slots,
+      a.p, a.cost, a.end, a.ckpt);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int W>
-int soft_dispatch(const float* q, const float* r, int batch, int m, int jlim,
-                  int chunk0, int chunks, int band, int shift, float gamma,
-                  int reverse, int abs_dist, float* cost, int* end,
-                  float* ckpt, cudaStream_t s) {
-  const bool banded = band >= 0;
+int soft_dispatch(const SoftCall& a, int reverse, int abs_dist) {
+  const bool banded = a.band >= 0;
 #define REPRO_CASE(REV, BND, ABSD)                                          \
   if (!!reverse == REV && banded == BND && !!abs_dist == ABSD)              \
-    return soft_launch<W, REV, BND, ABSD>(q, r, batch, m, jlim, chunk0,     \
-                                          chunks, band, shift, gamma, cost, \
-                                          end, ckpt, s);
+    return soft_run<W, REV, BND, ABSD>(a);
   REPRO_CASE(false, false, false)
   REPRO_CASE(false, false, true)
   REPRO_CASE(false, true, false)
@@ -708,7 +898,24 @@ int soft_dispatch(const float* q, const float* r, int batch, int m, int jlim,
   REPRO_CASE(true, true, false)
   REPRO_CASE(true, true, true)
 #undef REPRO_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  return -1;
+}
+
+int soft_entry(const SoftCall& a, int width, int reverse, int abs_dist) {
+  const int bad = a.op == 0 ? static_cast<int>(cudaErrorInvalidValue)
+                            : -static_cast<int>(cudaErrorInvalidValue);
+  if (a.warps < 1 || a.warps > kMaxWarps || a.slots < 1) return bad;
+  int status = -1;
+  switch (width) {
+    case 2: status = soft_dispatch<2>(a, reverse, abs_dist); break;
+    case 4: status = soft_dispatch<4>(a, reverse, abs_dist); break;
+    case 8: status = soft_dispatch<8>(a, reverse, abs_dist); break;
+    case 14: status = soft_dispatch<14>(a, reverse, abs_dist); break;
+    case 16: status = soft_dispatch<16>(a, reverse, abs_dist); break;
+    case 32: status = soft_dispatch<32>(a, reverse, abs_dist); break;
+    default: break;
+  }
+  return status == -1 ? bad : status;
 }
 
 }  // namespace
@@ -720,34 +927,37 @@ extern "C" {
 // reference left-padded); the kernel visits chunks [chunk0, chunk0 +
 // chunks).  jlim: forward, the true length n (fold j < n); reverse, the
 // pad width n_pad - n (columns j < jlim masked).  band < 0: unbanded;
-// shift: 0 forward, m - n_pad reverse.  cost (batch,) f32, end (batch,)
-// i32, ckpt (batch, chunks, m) f32 or null.  Returns cudaGetLastError()
-// (cudaErrorInvalidValue for a width with no instantiation).
+// shift: 0 forward, m - n_pad reverse.  warps: warps per CTA (1..8);
+// slots: ring groups of 32 rows per link (kernels/wavefront.py::
+// soft_ring_geometry).  cost (batch,) f32, end (batch,) i32, ckpt
+// (batch, chunks, m) f32 or null.  Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a width or geometry with no instantiation).
 int soft_wavefront_launch(const void* q, const void* r, int batch, int m,
                           int jlim, int chunk0, int chunks, int band,
                           int shift, float gamma, int width, int reverse,
-                          int abs_dist, void* cost, void* end, void* ckpt,
-                          void* stream) {
-  const float* qf = static_cast<const float*>(q);
-  const float* rf = static_cast<const float*>(r);
-  float* c = static_cast<float*>(cost);
-  int* e = static_cast<int*>(end);
-  float* ck = static_cast<float*>(ckpt);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_WIDTH(WD)                                                      \
-  case WD:                                                                   \
-    return soft_dispatch<WD>(qf, rf, batch, m, jlim, chunk0, chunks, band,  \
-                             shift, gamma, reverse, abs_dist, c, e, ck, s);
-  switch (width) {
-    REPRO_WIDTH(2)
-    REPRO_WIDTH(4)
-    REPRO_WIDTH(8)
-    REPRO_WIDTH(14)
-    REPRO_WIDTH(16)
-    REPRO_WIDTH(32)
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef REPRO_WIDTH
+                          int abs_dist, int warps, int slots, void* cost,
+                          void* end, void* ckpt, void* stream) {
+  // the base-2 constants, formed in double and rounded once
+  const double g = gamma;
+  const SoftParams p{static_cast<float>(1.4426950408889634 / g),
+                     static_cast<float>(g * 0.6931471805599453)};
+  const SoftCall a{0, static_cast<const float*>(q),
+                   static_cast<const float*>(r), batch, m, jlim, chunk0,
+                   chunks, band, shift, warps, slots, p,
+                   static_cast<float*>(cost), static_cast<int*>(end),
+                   static_cast<float*>(ckpt),
+                   static_cast<cudaStream_t>(stream)};
+  return soft_entry(a, width, reverse, abs_dist);
+}
+
+// CTAs of the instantiation resident per SM at this geometry, or a
+// negative CUDA error code.
+int soft_wavefront_occupancy(int m, int width, int reverse, int banded,
+                             int abs_dist, int warps, int slots) {
+  const SoftCall a{1, nullptr, nullptr, 0, m, 0, 0, 0, banded ? 0 : -1, 0,
+                   warps, slots, SoftParams{}, nullptr, nullptr, nullptr,
+                   nullptr};
+  return soft_entry(a, width, reverse, abs_dist);
 }
 
 }  // extern "C"

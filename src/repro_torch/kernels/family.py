@@ -32,8 +32,7 @@ import torch
 from repro_torch.core.engine import sdtw_engine
 from repro_torch.core.spec import DPSpec
 from repro_torch.kernels import build, wavefront
-from repro_torch.kernels.wavefront import (QUERY_PAD, RING_GROUP,
-                                           RingGeometry)
+from repro_torch.kernels.wavefront import RingGeometry
 
 FAMILY_CODES = {"twed": 0, "erp": 1, "local": 2}
 EXTRA_INPUTS = {"twed": ("r_prev",), "erp": ("bt", "bl"), "local": ()}
@@ -61,28 +60,25 @@ def refuse_grad(spec: DPSpec, *tensors) -> None:
 def family_geometry(m: int, family_: str,
                     warps: int = wavefront.WARPS) -> RingGeometry:
     """Size soft K7's launch (``smem_bytes`` in family_wavefront.cu): the
-    hard-min kernel's rings (:func:`wavefront.ring_slots`, one f32 a
-    row), the mbarriers (16 bytes a slot and link) and the query padded
-    by QUERY_PAD zeros on each side; the same for every family.  Raises
-    when it and the static fold arrays are over the shared memory a
-    block can have (m above 26,912 at 8 warps)."""
-    slots = wavefront.ring_slots(m, warps, "soft K7")
-    ring_rows = slots * RING_GROUP
-    smem = (16 * warps * slots + 4 * (m + 2 * QUERY_PAD)
-            + 4 * warps * ring_rows)
-    if smem + wavefront.STATIC_SMEM > wavefront.SMEM_LIMIT:
+    multi-warp rings of :func:`wavefront.ring_geometry`, one f32 a row,
+    the same for every family and the same as K5/K6's.  Raises when it
+    and the static fold arrays are over the shared memory a block can
+    have (m above 26,912 at 8 warps)."""
+    geo = wavefront.ring_geometry(m, warps, "soft K7")
+    if geo.smem_bytes + wavefront.STATIC_SMEM > wavefront.SMEM_LIMIT:
         raise ValueError(
-            f"query length m={m} needs {smem + wavefront.STATIC_SMEM} "
-            f"bytes of shared memory per block for soft {family_} (K7), "
-            f"over the {wavefront.SMEM_LIMIT} a block can have")
-    return RingGeometry(warps, slots, ring_rows, smem)
+            f"query length m={m} needs "
+            f"{geo.smem_bytes + wavefront.STATIC_SMEM} bytes of shared "
+            f"memory per block for soft {family_} (K7), over the "
+            f"{wavefront.SMEM_LIMIT} a block can have")
+    return geo
 
 
 def validate(q: torch.Tensor, r_layout: torch.Tensor, extras: tuple, *,
              n: int, w: int, spec: DPSpec) -> None:
     """Shaped errors for plans and operands K7 does not take."""
     wavefront.check_plan(spec, kernel="family")
-    wavefront.validate(q, r_layout, n=n, w=w)
+    wavefront.validate(q, r_layout, n=n, w=w, spec=spec)
     names = EXTRA_INPUTS[spec.family]
     if len(extras) != len(names):
         raise ValueError(

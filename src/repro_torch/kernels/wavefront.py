@@ -15,11 +15,12 @@ plans:
   ``reverse=True``).
 
 Geometry (the port's own, not the TPU's (8, 128) tiles): lane l of
-chunk c owns the ``w`` reference columns ``(c * 32 + l) * w + k``; the
-soft kernels run one warp per query, the hard-min kernel one CTA of
-``warps`` warps per query, warp p sweeping chunks p, p + warps, ... and
-passing each chunk's right boundary column to the next warp through a
-shared-memory ring (:func:`hard_geometry`).  The reference layout is the
+chunk c owns the ``w`` reference columns ``(c * 32 + l) * w + k``; both
+kernels run one CTA of ``warps`` warps per query, warp p sweeping the
+visited chunks p, p + warps, ... and passing each chunk's right boundary
+column to the next warp through a shared-memory ring
+(:func:`hard_geometry`, :func:`soft_ring_geometry`); :func:`longest_query`
+is the longest query a plan can launch.  The reference layout is the
 normalized reference zero-padded to a whole number of chunks; columns
 past the true length ``n`` are computed and never folded.  A reverse
 sweep reads the flipped reference left-padded to the same length
@@ -44,7 +45,7 @@ WARP = 32
 WIDTHS = (2, 4, 8, 14, 16, 32)     # the instantiations in wavefront.cu
 SMEM_LIMIT = 232_448               # shared memory per block, H100
 STATIC_SMEM = 128                  # a multi-warp kernel's static fold arrays
-WARPS = 8                          # hard-min, soft K7: warps per CTA (query)
+WARPS = 8                          # multi-warp kernels: warps per CTA (query)
 MAX_WARPS = 8                      # kMaxWarps in the .cu sources
 RING_GROUP = 32                    # ring rows per full/empty mbarrier pair
 QUERY_PAD = 32                     # zeros each side of the staged query
@@ -121,14 +122,13 @@ def soft_geometry(m: int, n: int, n_pad: int, w: int, band: int | None,
 
 
 def strip_bytes(m: int) -> int:
-    """Shared memory of the one-warp kernels (K5/K6, hard K7): two strips
-    of m f32."""
+    """Shared memory of the one-warp hard K7: two strips of m f32."""
     return 2 * 4 * m
 
 
 class RingGeometry(NamedTuple):
     """Launch geometry of a multi-warp wavefront (the hard-min kernel,
-    soft K7) for one query length."""
+    K5/K6, soft K7) for one query length."""
     warps: int        # warps per CTA; one CTA per query
     slots: int        # ring groups of RING_GROUP rows, per link
     ring_rows: int    # slots * RING_GROUP
@@ -151,17 +151,70 @@ def ring_slots(m: int, warps: int, kernel: str) -> int:
     return -(-(m + WARP - 1) // (RING_GROUP * warps)) + 2
 
 
-def hard_geometry(m: int, with_window: bool,
-                  warps: int = WARPS) -> RingGeometry:
-    """Size the hard-min kernel's rings (``smem_bytes`` in wavefront.cu,
-    :func:`ring_slots`).  Shared memory: the mbarriers (16 bytes a slot
-    and link), the query padded by QUERY_PAD zeros on each side, and one
-    ring per link (f32, plus i32 with the start lane)."""
-    slots = ring_slots(m, warps, "the hard-min kernel")
+def ring_geometry(m: int, warps: int, kernel: str,
+                  lanes: int = 1) -> RingGeometry:
+    """Size a multi-warp kernel's rings (:func:`ring_slots`).  Dynamic
+    shared memory: the mbarriers (16 bytes a slot and link), the query
+    padded by QUERY_PAD zeros on each side, and one ring per link of
+    ``lanes`` 4-byte values a row."""
+    slots = ring_slots(m, warps, kernel)
     ring_rows = slots * RING_GROUP
     smem = (16 * warps * slots + 4 * (m + 2 * QUERY_PAD)
-            + (8 if with_window else 4) * warps * ring_rows)
+            + 4 * lanes * warps * ring_rows)
     return RingGeometry(warps, slots, ring_rows, smem)
+
+
+def hard_geometry(m: int, with_window: bool,
+                  warps: int = WARPS) -> RingGeometry:
+    """The hard-min kernel's launch (``smem_bytes`` in wavefront.cu): its
+    rings carry f32, plus i32 with the start lane."""
+    return ring_geometry(m, warps, "the hard-min kernel",
+                         2 if with_window else 1)
+
+
+def soft_ring_geometry(m: int, warps: int = WARPS) -> RingGeometry:
+    """The soft kernel's launch, K5 and the K6 pair (``soft_smem_bytes``
+    in wavefront.cu): one f32 a ring row, as soft K7's
+    (``family.family_geometry``).  The ring counterpart of
+    :func:`soft_geometry`, which gives the chunks a sweep visits."""
+    return ring_geometry(m, warps, "the soft-min kernel")
+
+
+def block_smem(m: int, spec: DPSpec, *, with_window: bool = False) -> int:
+    """Shared memory per block (dynamic and the static fold arrays) of
+    the kernel that runs ``spec``'s plan at query length m (WARPS warps
+    a multi-warp CTA): the hard-min
+    kernel's rings (:func:`hard_geometry`), the soft kernel's
+    (:func:`soft_ring_geometry`), soft K7's (the same rings, see
+    ``family.family_geometry``) or hard K7's strips
+    (:func:`strip_bytes`)."""
+    kernel = plan_kernel(spec)
+    if kernel == "family" and not spec.soft:
+        return strip_bytes(m)
+    geo = (hard_geometry(m, with_window) if kernel == "hard"
+           else soft_ring_geometry(m))
+    return geo.smem_bytes + STATIC_SMEM
+
+
+def longest_query(spec: DPSpec, *, with_window: bool = False,
+                  compute_dtype=torch.float32) -> int:
+    """The longest query the kernel backend can launch for a plan: the
+    spec, ``with_window`` (the ``start`` output, K3) and the compute
+    type (bf16-K1 stages the same rings as K1, so it does not move the
+    limit).  The largest m whose :func:`block_smem` fits the block's
+    SMEM_LIMIT: 26,912 for K1/K4/bf16-K1, K5/K6 and soft K7, 18,145 for
+    K3, 29,056 for hard K7 (at 8 warps)."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                         f"got {compute_dtype}")
+    lo, hi = 0, SMEM_LIMIT          # every query row takes 4 bytes or more
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if block_smem(mid, spec, with_window=with_window) <= SMEM_LIMIT:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
 
 
 def plan_kernel(spec: DPSpec) -> str:
@@ -238,11 +291,10 @@ def check_plan(spec: DPSpec, *, kernel: str | None = None,
 
 
 def validate(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
-             hard: bool = False, with_window: bool = False) -> None:
+             spec: DPSpec, with_window: bool = False) -> None:
     """Shaped errors for operands the kernels do not take (the plan's
-    own are :func:`check_plan`'s).  ``hard``: the launch is the hard-min
-    kernel's (its rings, :func:`hard_geometry`), else a one-warp
-    kernel's (its strips, :func:`strip_bytes`)."""
+    own are :func:`check_plan`'s); the query length against the shared
+    memory of the kernel that runs ``spec`` (:func:`block_smem`)."""
     if w not in WIDTHS:
         raise ValueError(
             f"segment_width={w} has no wavefront kernel instantiation; "
@@ -270,13 +322,13 @@ def validate(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
         raise ValueError(f"queries on {q.device}, reference layout on "
                          f"{r_layout.device}")
     m = q.shape[1]
-    smem_bytes = (hard_geometry(m, with_window).smem_bytes + STATIC_SMEM
-                  if hard else strip_bytes(m))
+    smem_bytes = block_smem(m, spec, with_window=with_window)
     if smem_bytes > SMEM_LIMIT:
         raise ValueError(
-            f"query length m={q.shape[1]} needs {smem_bytes} bytes of "
-            f"shared memory per block, over the {SMEM_LIMIT} a block can "
-            f"have")
+            f"query length m={m} needs {smem_bytes} bytes of shared memory "
+            f"per block, over the {SMEM_LIMIT} a block can have (longest "
+            f"query {longest_query(spec, with_window=with_window)}; "
+            f"backend='engine' runs any length)")
 
 
 def wavefront_plain(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
@@ -367,7 +419,7 @@ def wavefront(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
     clamps them)."""
     check_plan(spec, kernel="hard", compute_dtype=compute_dtype,
                with_window=with_window)
-    validate(q, r_layout, n=n, w=w, hard=True, with_window=with_window)
+    validate(q, r_layout, n=n, w=w, spec=spec, with_window=with_window)
     if build.on_card(q):
         return wavefront_cuda(q, r_layout, n=n, w=w, spec=spec,
                               with_window=with_window,
@@ -495,34 +547,62 @@ def soft_plain(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
                        n_valid=n)
 
 
+def _soft_fn(lib: ctypes.CDLL, name: str):
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    if name == "soft_wavefront_launch":
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                       + [ctypes.c_float] + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 4)
+    else:
+        fn.argtypes = [ctypes.c_int] * 7
+    return fn
+
+
+def soft_occupancy(m: int, w: int, *, reverse: bool = False,
+                   warps: int = WARPS) -> int:
+    """CTAs of the (unbanded, sqeuclidean) soft kernel resident per SM at
+    this geometry (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``;
+    card only)."""
+    geo = soft_ring_geometry(m, warps)
+    lib = build.library("soft_wavefront")
+    blocks = _soft_fn(lib, "soft_wavefront_occupancy")(
+        m, w, int(reverse), 0, 0, geo.warps, geo.slots)
+    if blocks < 0:
+        build.check(lib, -blocks, f"soft wavefront occupancy (w={w}, "
+                                  f"m={m})")
+    return blocks
+
+
 def soft_cuda(q: torch.Tensor, r_layout: torch.Tensor, *, n: int, w: int,
               spec: DPSpec, reverse: bool = False,
-              checkpoint: bool = False):
-    """Launch the soft kernel: one warp per query.  Returns (cost, end),
-    or (cost, end, strips) for a checkpoint or reverse sweep."""
+              checkpoint: bool = False, warps: int = WARPS,
+              lib: ctypes.CDLL | None = None):
+    """Launch the soft kernel: one CTA of ``warps`` warps per query.
+    Returns (cost, end), or (cost, end, strips) for a checkpoint or
+    reverse sweep.  ``lib``: another build of the soft source (default:
+    ``soft_wavefront``)."""
     B, m = q.shape
     chunk0, chunks, jlim, shift = soft_geometry(
         m, n, r_layout.shape[0], w, spec.band, reverse)
+    geo = soft_ring_geometry(m, warps)
     strips = checkpoint or reverse
     cost = torch.empty((B,), dtype=torch.float32, device=q.device)
     end = torch.empty((B,), dtype=torch.int32, device=q.device)
     ckpt = (torch.empty((B, chunks, m), dtype=torch.float32,
                         device=q.device) if strips else None)
-    lib = build.library("soft_wavefront")
-    fn = lib.soft_wavefront_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 4)
+    lib = lib if lib is not None else build.library("soft_wavefront")
+    fn = _soft_fn(lib, "soft_wavefront_launch")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), r_layout.data_ptr(), B, m, jlim, chunk0,
                     chunks, -1 if spec.band is None else int(spec.band),
                     shift, float(spec.gamma), w, int(reverse),
-                    int(spec.distance == "abs"), cost.data_ptr(),
-                    end.data_ptr(), 0 if ckpt is None else ckpt.data_ptr(),
-                    stream)
+                    int(spec.distance == "abs"), geo.warps, geo.slots,
+                    cost.data_ptr(), end.data_ptr(),
+                    0 if ckpt is None else ckpt.data_ptr(), stream)
     build.check(lib, status, f"soft wavefront launch (w={w}, B={B}, m={m}, "
+                             f"warps={geo.warps}, "
                              f"{soft_variant(reverse, checkpoint)})")
     soft_counter.add(soft_variant(reverse, checkpoint))
     return (cost, end, ckpt) if strips else (cost, end)
@@ -533,7 +613,7 @@ def soft_wavefront(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
     """The K5 wrapper: soft cost and hard end of each query (end a raw
     column; ``repro_torch.kernels.ops`` clamps it)."""
     check_plan(spec, kernel="soft")
-    validate(q, r_layout, n=n, w=w)
+    validate(q, r_layout, n=n, w=w, spec=spec)
     if build.on_card(q):
         return soft_cuda(q, r_layout, n=n, w=w, spec=spec)
     return soft_plain(q, r_layout, n=n, w=w, spec=spec)
@@ -549,7 +629,7 @@ def soft_checkpoint(q: torch.Tensor, r_layout: torch.Tensor, *, n: int,
     flipped argmin column, and the B strips of the visited flipped
     chunks, in flipped row order."""
     check_plan(spec, kernel="soft", reverse=reverse, checkpoint=True)
-    validate(q, r_layout, n=n, w=w)
+    validate(q, r_layout, n=n, w=w, spec=spec)
     if build.on_card(q):
         return soft_cuda(q, r_layout, n=n, w=w, spec=spec, reverse=reverse,
                          checkpoint=True)

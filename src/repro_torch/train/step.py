@@ -24,8 +24,10 @@ def make_sdtw_loss(reference, *, spec=None, gamma: float = 1.0,
     reference series, a training objective for ``torch.autograd``.
 
     The spec is promoted to soft-min (``gamma``) if it is not already.
-    ``backend=None`` takes the device's first capable backend (every
-    registered backend is differentiable under soft-min): on the card the kernel backend, which differentiates
+    ``backend=None`` takes, at each call, the device's first capable
+    backend for the predictions' length (every registered backend is
+    differentiable under soft-min): on the card the kernel backend, or
+    the engine past the kernel's longest query; the kernel differentiates
     through the fused reverse-sweep backward (K6 and the tile pass)
     and, with ``normalize=True``, through the normalizer's backward; a
     reference tensor that requires grad receives its gradient too.
@@ -39,7 +41,7 @@ def make_sdtw_loss(reference, *, spec=None, gamma: float = 1.0,
         resolved = resolve_spec(resolved, reduction="softmin")
     dev = resolve_device(device)
     if backend is None:
-        backend = registry.select(resolved, device=dev).name
+        registry.select(resolved, device=dev)   # raises if none can run it
     ref = reference if isinstance(reference, torch.Tensor) else \
         as_f32(reference, dev)
 

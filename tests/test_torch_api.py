@@ -68,6 +68,126 @@ def test_sdtw_ref_backend_and_auto_selection():
                            device=torch.device("cuda")).name == "kernel"
 
 
+# (spec fields, outputs, the kernel's longest query): K1, K3, K4, K5,
+# the K6 pair, hard K7 and soft K7
+LONGEST = [
+    ({}, ("cost", "end"), 26_912),
+    ({}, ("cost", "start", "end"), 18_145),
+    ({"band": 900}, ("cost", "end"), 26_912),
+    ({"reduction": "softmin", "gamma": 0.5}, ("cost", "end"), 26_912),
+    ({"reduction": "softmin", "gamma": 0.5}, ("soft_alignment",), 26_912),
+    ({"family": "twed", "nu": 0.5, "lam": 0.75}, ("cost", "end"), 29_056),
+    ({"family": "local", "reduction": "softmin", "gap_penalty": 0.6,
+      "match_reward": 1.1}, ("cost", "end"), 26_912)]
+LONGEST_IDS = ["K1", "K3", "K4", "K5", "K6", "K7-hard", "K7-soft"]
+
+
+@pytest.mark.parametrize("fields,outputs,longest", LONGEST, ids=LONGEST_IDS)
+def test_auto_selection_falls_back_past_the_longest_query(fields, outputs,
+                                                         longest):
+    """On a CUDA device the kernel leads up to its plan's longest query
+    and the engine takes longer ones; no length keeps today's answer.
+    Only the registry is asked: no sweep runs."""
+    from repro_torch.backends import registry
+    from repro_torch.core.spec import resolve_spec
+    spec = resolve_spec(None, **fields)
+    cuda = torch.device("cuda")
+
+    def pick(m):
+        return registry.select(spec, outputs=outputs, device=cuda, m=m).name
+    assert pick(None) == "kernel"
+    assert pick(longest) == "kernel"
+    assert pick(longest + 1) == "engine"
+    assert registry.capable(spec, outputs=outputs, device=cuda,
+                            m=longest + 1) == ["engine", "ref"]
+    reason = registry.get("kernel").capabilities.unsupported_reason(
+        spec, outputs=outputs, m=longest + 1)
+    assert f"m={longest + 1}" in reason and str(longest) in reason
+    # on the CPU the engine leads whatever the length
+    assert registry.select(spec, outputs=outputs,
+                           m=longest + 1).name == "engine"
+
+
+@pytest.mark.parametrize("fields,outputs,longest", LONGEST, ids=LONGEST_IDS)
+def test_explicit_kernel_keeps_its_shaped_error(fields, outputs, longest):
+    """backend="kernel" is not re-routed: a query one sample past the
+    kernel's longest raises the wrapper's shared-memory error before any
+    sweep runs."""
+    q, r = _inputs(1, longest + 1, longest + 1, seed=9)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        repro_torch.sdtw(q, r, outputs=outputs, backend="kernel",
+                         device="cpu", **fields)
+
+
+@pytest.fixture
+def card_order_and_short_kernel(monkeypatch):
+    """Selection as on a CUDA device (the kernel first) on CPU tensors,
+    with the kernel's longest query cut to 24 samples, and a record of
+    the kernel's sweeps (``ops.sdtw_wavefront_prepped``)."""
+    from repro_torch.backends import registry
+    from repro_torch.kernels import ops, wavefront
+    order = registry._priority(torch.device("cuda"))
+    monkeypatch.setattr(registry, "_priority", lambda device: order)
+    monkeypatch.setattr(wavefront, "longest_query", lambda spec, **kw: 24)
+    swept = []
+    sweep = ops.sdtw_wavefront_prepped
+
+    def recorded(queries, *args, **kwargs):
+        swept.append(queries.shape[1])
+        return sweep(queries, *args, **kwargs)
+    monkeypatch.setattr(ops, "sdtw_wavefront_prepped", recorded)
+    return swept
+
+
+@pytest.mark.parametrize("gamma", [None, 0.5])
+def test_sdtw_and_aligner_fall_back_per_call(card_order_and_short_kernel,
+                                            gamma):
+    swept = card_order_and_short_kernel
+    kw = {} if gamma is None else dict(reduction="softmin", gamma=gamma)
+    q_short = _inputs(3, 24, 1, seed=11)[0]
+    q_long, r = _inputs(3, 25, 200, seed=12)
+    al = repro_torch.Aligner(r, device="cpu", **kw)
+    assert al.backend.name == "kernel"
+    al(q_short)
+    assert swept == [24]
+    engine = repro_torch.sdtw(q_long, r, backend="engine", device="cpu", **kw)
+    for got in (al(q_long), repro_torch.sdtw(q_long, r, device="cpu", **kw)):
+        assert torch.equal(got.cost, engine.cost)
+        assert torch.equal(got.end, engine.end)
+    assert swept == [24]
+    want = repro.sdtw(q_long, r, backend="engine", **kw)
+    _same(engine, want, ("cost", "end"))
+    assert al.stats.calls == 2
+    # a named backend is not re-routed: the kernel's plain version runs
+    repro_torch.sdtw(q_long, r, backend="kernel", device="cpu", **kw)
+    assert swept == [24, 25]
+
+
+def test_fallback_keeps_autograd(card_order_and_short_kernel):
+    """The engine's autograd reaches the queries and the reference on the
+    fallback path, through the Aligner and make_sdtw_loss."""
+    from repro_torch.train.step import make_sdtw_loss
+    q_np, r_np = _inputs(3, 25, 200, seed=13)
+
+    def grads(run):
+        q = torch.from_numpy(q_np).requires_grad_()
+        r = torch.from_numpy(r_np).requires_grad_()
+        run(q, r).backward()
+        return q.grad, r.grad
+    want = grads(lambda q, r: repro_torch.sdtw(
+        q, r, gamma=0.5, backend="engine", device="cpu").cost.sum())
+    for run in (lambda q, r: repro_torch.Aligner(
+                    r, gamma=0.5, reduction="softmin",
+                    device="cpu")(q).cost.sum(),
+                lambda q, r: make_sdtw_loss(r, gamma=0.5, device="cpu",
+                                            reduce="sum")(q)):
+        got = grads(run)
+        for a, b in zip(got, want):
+            assert a is not None and bool(a.abs().sum() > 0)
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    assert card_order_and_short_kernel == []
+
+
 @pytest.mark.parametrize("band", [None, 12])
 def test_aligner_from_jax_session(band):
     r = _inputs(1, 1, 400, seed=3)[1]

@@ -274,3 +274,30 @@ def test_exact_tie_on_card(cuda):
                                  torch.from_numpy(r).to(cuda),
                                  segment_width=2, return_window=True)
     assert (float(c[0]), int(s[0]), int(e[0])) == (0.0, 50, 59)
+
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gamma", [None, 1.0])
+def test_front_door_runs_past_the_kernels_longest_query_on_card(cuda,
+                                                               gamma):
+    """A 30,000-sample query is longer than any kernel plan launches:
+    repro_torch.sdtw and an Aligner that chose their backend run it on
+    the engine (no kernel launch), equal to backend="engine"; a named
+    kernel backend raises its shaped error."""
+    import repro_torch
+    kw = {} if gamma is None else dict(reduction="softmin", gamma=gamma)
+    q, r = _inputs(2, 30_000, 300, seed=30)
+    want = repro_torch.sdtw(q, r, backend="engine", **kw)
+    launches = (wavefront.counter.count, wavefront.soft_counter.count)
+    got = [repro_torch.sdtw(q, r, **kw), repro_torch.Aligner(r, **kw)(q)]
+    torch.cuda.synchronize()
+    assert (wavefront.counter.count,
+            wavefront.soft_counter.count) == launches
+    for res in got:
+        assert res.cost.device.type == "cuda"
+        assert torch.equal(res.cost, want.cost)
+        assert torch.equal(res.end, want.end)
+    assert bool(torch.isfinite(want.cost).all())
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        repro_torch.sdtw(q, r, backend="kernel", **kw)

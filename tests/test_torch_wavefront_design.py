@@ -2,8 +2,10 @@
 CPU: the reassociated cell of ``csrc/wavefront.cu`` against the port's
 ``DPSpec.cell_update`` / ``start3``, a step-by-step model of the kernels'
 mbarrier ring between the warps of a CTA (every row arrives at the right
-chunk, no geometry deadlocks), the host helpers that size the hard-min
-and soft K7 launches and K2's grid and cluster, and the soft K7 of
+chunk, K6 checkpoints what it reads, no geometry deadlocks), the host
+helpers that size the hard-min, K5/K6 and soft K7 launches (and the
+longest query each plan can launch) and K2's grid and cluster, and the
+soft K7 of
 ``csrc/family_wavefront.cu`` emulated in torch (its base-2 soft-min with
 the min's own term fixed at 1, its cell, its steady blocks and its folds)
 against the port's ``DPSpec``."""
@@ -57,19 +59,30 @@ def test_reassociated_cell_equals_cell_update_and_start3(dtype):
 
 
 # ------------------------------------------------------- the ring model
-def _simulate_cta(m: int, chunks: int, warps: int, slots: int):
+def _simulate_cta(m: int, chunks: int, warps: int, slots: int, *,
+                  chunk0: int = 0, strips: dict | None = None):
     """Run the CTA's schedule (``csrc/ring.cuh::RingWalk``, which the
-    hard-min kernel and soft K7 both walk) step by step, the warps in
-    turn, with each mbarrier a count of completed phases and each wait a
-    test of its phase parity, as ``mbarrier.try_wait.parity`` tests it.
-    Returns the boundary rows each chunk read, {chunk: [(chunk, row),
-    ...]}; raises when no warp can take a step (a deadlock)."""
+    hard-min kernel, K5/K6 and soft K7 all walk) step by step, the warps
+    in turn, with each mbarrier a count of completed phases and each wait
+    a test of its phase parity, as ``mbarrier.try_wait.parity`` tests it.
+    ``chunks`` visited chunks, the first ``chunk0`` chunks into the
+    layout (a band-skipped reverse sweep).  Returns the boundary rows
+    each visited chunk read, {chunk: [(layout chunk, row), ...]}; fills
+    ``strips`` with what K6 writes to each visited chunk's checkpoint
+    strip, group by group as it is taken from the ring (SOFT_BIG rows
+    for the first); raises when no warp can take a step (a deadlock)."""
     G = wavefront.RING_GROUP
     groups = -(-m // G)
     full = [[0] * slots for _ in range(warps)]      # [link][slot]
     empty = [[0] * slots for _ in range(warps)]
     data = [[None] * (slots * G) for _ in range(warps)]
     read = {c: [] for c in range(chunks)}
+
+    def checkpoint(c, link, slot, g):
+        if strips is not None:
+            strip = strips.setdefault(c, [SOFT_BIG] * m)
+            for x in range(min(G, m - g * G)):
+                strip[g * G + x] = data[link][slot * G + x]
 
     def full_done(link, x):        # consumer: parity (x // slots) & 1
         return full[link][x % slots] % 2 != (x // slots) % 2
@@ -84,10 +97,13 @@ def _simulate_cta(m: int, chunks: int, warps: int, slots: int):
             in0 = ((c - 1) // warps) * groups if has_in else 0
             out0 = (c // warps) * groups
             rd = wr = None
+            if strips is not None and not has_in:
+                strips[c] = [SOFT_BIG] * m
             if has_in:
                 while not full_done(link_in, in0):
                     yield False
                 rd = in0 % slots
+                checkpoint(c, link_in, rd, 0)
                 read[c].append(data[link_in][rd * G])
             for t in range(m + 31):
                 if t % G == G - 1:                      # the ring step
@@ -100,6 +116,7 @@ def _simulate_cta(m: int, chunks: int, warps: int, slots: int):
                         while not full_done(link_in, in0 + g):
                             yield False
                         rd = (in0 + g) % slots
+                        checkpoint(c, link_in, rd, g)
                     if has_out and g - 1 < groups:
                         while not empty_done(link_out, out0 + g - 1):
                             yield False
@@ -108,7 +125,7 @@ def _simulate_cta(m: int, chunks: int, warps: int, slots: int):
                     read[c].append(data[link_in][rd * G + (t + 1) % G])
                 i = t - 31                               # lane 31 writes i
                 if has_out and 0 <= i < m:
-                    data[link_out][wr * G + i % G] = (c, i)
+                    data[link_out][wr * G + i % G] = (chunk0 + c, i)
                 yield True
             if has_out:
                 full[link_out][(out0 + groups - 1) % slots] += 1
@@ -198,10 +215,72 @@ def test_hard_limit_counts_the_static_fold_arrays():
         assert wavefront.hard_geometry(m, False).smem_bytes \
             <= wavefront.SMEM_LIMIT
     wavefront.validate(torch.zeros(1, longest), torch.zeros(64), n=64, w=2,
-                       hard=True)
+                       spec=DPSpec())
     with pytest.raises(ValueError, match="bytes of shared memory"):
         wavefront.validate(torch.zeros(1, longest + 1), torch.zeros(64),
-                           n=64, w=2, hard=True)
+                           n=64, w=2, spec=DPSpec())
+
+
+# ------------------------------------------------- K5/K6 on the ring
+@pytest.mark.parametrize("m", [1, 33, 200, PAPER_M])
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+def test_soft_ring_geometry_is_soft_k7s_and_fits(warps, m):
+    geo = wavefront.soft_ring_geometry(m, warps)
+    assert geo == family.family_geometry(m, "twed", warps)
+    assert geo.smem_bytes + wavefront.STATIC_SMEM <= wavefront.SMEM_LIMIT
+    assert warps * (geo.ring_rows - 64) >= m + 31
+    assert geo.smem_bytes == (16 * warps * geo.slots + 4 * (m + 64)
+                              + 4 * warps * geo.ring_rows)
+
+
+@pytest.mark.parametrize("m", [1, 33, PAPER_M])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_soft_ring_model_delivers_and_checkpoints(reverse, m):
+    """K5 and the K6 pair walk the hard-min kernel's ring: at 1, P-1, P,
+    P+1 and 2P+1 visited chunks (a band-skipped reverse sweep starting
+    chunk0 chunks in) every chunk reads, and K6 checkpoints, the column
+    its left neighbour wrote (SOFT_BIG for the first).  At PAPER's m the
+    smallest ring that completes is two groups below the geometry's:
+    three fewer deadlock."""
+    geo = wavefront.soft_ring_geometry(m)
+    P = geo.warps
+    chunk0 = 5 if reverse else 0
+    for slots in ((geo.slots, geo.slots - 2) if m == PAPER_M
+                  else (geo.slots,)):
+        for chunks in (1, P - 1, P, P + 1, 2 * P + 1):
+            strips = {}
+            read = _simulate_cta(m, chunks, P, slots, chunk0=chunk0,
+                                 strips=strips)
+            for c in range(chunks):
+                want = [(chunk0 + c - 1, i) for i in range(m)] if c else []
+                assert read[c] == want, (m, chunks, slots, c)
+                assert strips[c] == (want or [SOFT_BIG] * m)
+    if m == PAPER_M:
+        with pytest.raises(RuntimeError, match="deadlock"):
+            _simulate_cta(m, 2 * P + 1, P, geo.slots - 3, chunk0=chunk0)
+
+
+@pytest.mark.parametrize("kwargs,with_window,longest", [
+    ({}, False, 26_912), ({}, True, 18_145), ({"band": 900}, False, 26_912),
+    ({"reduction": "softmin"}, False, 26_912),
+    ({"family": "twed", "nu": 0.5, "lam": 0.75}, False, 29_056),
+    ({"family": "local", "reduction": "softmin", "gap_penalty": 0.6,
+      "match_reward": 1.1}, False, 26_912)],
+    ids=["K1", "K3", "K4", "K5-K6", "K7-hard", "K7-soft"])
+def test_longest_query_is_the_geometry_limit(kwargs, with_window, longest):
+    spec = resolve_spec(None, **kwargs)
+    assert wavefront.longest_query(spec, with_window=with_window) == longest
+    assert wavefront.longest_query(spec, with_window=with_window,
+                                   compute_dtype=torch.bfloat16) == longest
+    for m, fits in ((longest, True), (longest + 1, False)):
+        need = wavefront.block_smem(m, spec, with_window=with_window)
+        assert (need <= wavefront.SMEM_LIMIT) == fits
+    # the shaped error of the wrappers, before any sweep
+    kw = dict(n=64, w=2, spec=spec, with_window=with_window)
+    wavefront.validate(torch.zeros(1, longest), torch.zeros(64), **kw)
+    with pytest.raises(ValueError, match=f"longest query {longest}"):
+        wavefront.validate(torch.zeros(1, longest + 1), torch.zeros(64),
+                           **kw)
 
 
 @pytest.mark.parametrize("rows", [1, 513])
