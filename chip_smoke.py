@@ -9,7 +9,8 @@ NVIDIA H100.
 Phases, one JSON line each:
   1. the card (``nvidia-smi`` name and power limit) and the kernel build
      (``nvcc -Xptxas -v``: registers and spills per instantiation; every
-     K5/K6 and soft K7 instantiation must report, and none may spill);
+     K5/K6 and K7 (hard and soft) instantiation must report, and none may
+     spill);
   2. K2 (its row and cluster kernels) against its plain version on the
      PAPER query batch (512, 2000) and reference (100,000,), and at 1 and
      513 rows of 1, 31, 2,001, 100,000, 100,003 and 300,003 samples, each
@@ -30,9 +31,9 @@ Phases, one JSON line each:
      path (``repro_torch.sdtw(..., band=900)``, K4) on the same data,
      its counts read on their own, bit for bit against the plain version;
   5. ``geometry`` (warps per CTA, ring rows, shared memory per CTA, CTAs
-     resident per SM of K1, K3, K5/K6 and soft K7 (twed, erp, local; the
-     soft kernels with their registers) at PAPER; K2's kernel, cluster
-     size and grid) and
+     resident per SM of K1, K3, K5/K6 and hard and soft K7 (twed, erp,
+     local; K5/K6 and K7 with their registers) at PAPER; K2's kernel,
+     cluster size and grid) and
      ``times``: CUDA events (warm) for K1 and K3 at PAPER, every
      width, and a warm ``Aligner`` call; device time from a CUDA graph
      of 20 launches for the small kernels (K4, K2 on the batch and on the
@@ -70,14 +71,15 @@ Phases, one JSON line each:
      distances; every width) against its plain version on references of
      three chunks whose last chunk is partly padding, unbanded and
      banded: hard bit for bit, soft within atol = rtol = 1e-4, ends
-     equal; a blocked corner answered with no launch; soft twed, erp and
-     local on references of 1, P-1, P, P+1 and 2P+1 chunks (P warps per
-     CTA) at widths 2 and 8, m 1, 33 and 200;
+     equal; a blocked corner answered with no launch; hard and soft twed,
+     erp and local on references of 1, P-1, P, P+1 and 2P+1 chunks (P
+     warps per CTA) at widths 2 and 8, m 1, 33 and 200;
  12. ``family_main_path``: each family x reduction at full PAPER width
      through ``repro_torch.sdtw`` and an ``Aligner``, launch counts read
      on their own, costs finite, corner ends n - 1, planted local ends
      counted, each held to K7's plain version at PAPER's M and N (hard
-     local on all 512 queries, the other five on every 8th);
+     local on all 512 queries, the other five on every 8th; the plain
+     sweep's steady diagonals replayed from a CUDA graph);
  13. ``family_times``: K7 at PAPER per family and reduction, bounds,
      the one-warp K7's times of record beside;
  14. ``bf16``: bf16-K1 against its plain version bit for bit (every
@@ -93,6 +95,7 @@ non-zero.  With no card (and no ``--cpu``) the script exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -132,16 +135,17 @@ FAMILY_PARAMS = {"twed": dict(nu=0.5, lam=0.75), "erp": dict(gap=0.25),
                  "local": dict(gap_penalty=0.6, match_reward=1.1)}
 FAMILY_GAMMA = 0.7
 # K7's plain version sweeps every diagonal of PAPER with a few dozen torch
-# launches each (about 40 s a request at full batch): hard local is held
-# to it at the full batch, the other five requests on every
+# launches each, the steady ones replayed from a CUDA graph: hard local is
+# held to it at the full batch, the other five requests on every
 # PLAIN_QUERY_STRIDE-th query (64 of 512) at PAPER's M and N.
 PLAIN_QUERY_STRIDE = 8
 # Operations a cell that the family function needs, from DPSpec.family_cell
 # and the fold, with the terms that depend on the row alone or on the
 # column alone hoisted out of the cell (twed's t_left d(r_j, r_j-1) + nu +
 # lam and t_up d(q_i, q_i-1) + nu + lam; erp's d(r_j, g) and d(q_i, g)).
-# FP32: a distance is sub + mul (or abs); twed's t_diag 8 (two distances,
-# two adds, the |i - j| conversion, a mul); erp's 2; local's 3 (a
+# FP32: a distance is sub + mul (or abs); twed's t_diag 6 (a distance,
+# two adds, the |i - j| conversion, a mul: its d(q_i-1, r_j-1) is the
+# d(q_i, r_j) of cell (i-1, j-1), already computed); erp's 2; local's 3 (a
 # distance and the reward); then 3 adds of predecessor and transition and
 # the hard reduce3's 2 mins; local adds the floor's min and 2 fold
 # compares.  Soft-min replaces the 2 mins by reduce3's 10 FP32 and 3 MUFU
@@ -150,16 +154,16 @@ PLAIN_QUERY_STRIDE = 8
 # and its running logsumexp 3 FP32 and one exponential a cell beside the
 # 2 compares of its hard twin.
 FAMILY_OPS = {  # (variant, family) -> (FP32, MUFU) a cell
-    ("K7-corner", "twed"): (13, 0), ("K7-corner", "erp"): (7, 0),
+    ("K7-corner", "twed"): (11, 0), ("K7-corner", "erp"): (7, 0),
     ("K7-cells", "local"): (11, 0),
-    ("K7-soft-corner", "twed"): (21, 3), ("K7-soft-corner", "erp"): (15, 3),
+    ("K7-soft-corner", "twed"): (19, 3), ("K7-soft-corner", "erp"): (15, 3),
     ("K7-soft-cells", "local"): (27, 6)}
-# K7 at PAPER at one warp per query, before soft K7 ran several warps per
-# query (ms, the times of record in PERF.md, "NVIDIA H100 80GB HBM3,
-# 700.00 W"), printed beside this run's times
-K7_ONE_WARP_MS = {("twed", False): 159.07, ("erp", False): 142.95,
-              ("local", False): 326.81, ("twed", True): 759.83,
-              ("erp", True): 743.66, ("local", True): 1438.88}
+# K7 at PAPER at one warp per query, before K7 ran several warps per query
+# (ms, the times of record in PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W"),
+# printed beside this run's times
+K7_ONE_WARP_MS = {("twed", False): 160.28, ("erp", False): 140.16,
+                  ("local", False): 324.49, ("twed", True): 759.83,
+                  ("erp", True): 743.66, ("local", True): 1438.88}
 # K5/K6 at one warp per query, before they ran several warps per query
 # (ms, the times of record in PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W"),
 # printed beside this run's times
@@ -824,6 +828,7 @@ def family_spec(fam: str, soft: bool, band=None,
 
 def family_parity(c) -> None:
     """K7, every instantiation, against its plain version."""
+    t0 = time.perf_counter()
     np, torch = c.np, c.torch
     from repro_torch.core.normalize import normalize_batch
     from repro_torch.kernels import family, ops, wavefront
@@ -890,13 +895,15 @@ def family_parity(c) -> None:
                             f"blocked {spec.describe()} launched or "
                             f"answered wrong")
                     blocked += 1
-    # soft K7's CTA of P warps at 1, P-1, P, P+1 and 2P+1 chunks (idle
-    # warps, a ring that wraps), m 1, 33 and 200; one plain version per
-    # reference
+    # K7's CTA of P warps at 1, P-1, P, P+1 and 2P+1 chunks (idle warps, a
+    # ring that wraps), m 1, 33 and 200, hard (bit-equal) and soft; one
+    # plain version per reference
     P = wavefront.WARPS
-    chunk_cases = 0
-    for fam in ("twed", "erp", "local"):
-        spec = family_spec(fam, True)
+    chunk_cases = {"hard": 0, "soft": 0}
+    for fam, soft in itertools.product(("twed", "erp", "local"),
+                                       (False, True)):
+        spec = family_spec(fam, soft)
+        kind = "soft" if soft else "hard"
         for w in ((2, 8) if c.cuda else (2,)):
             W = wavefront.chunk_cols(w)
             for m in (1, 33, 200):
@@ -911,12 +918,13 @@ def family_parity(c) -> None:
                                                   spec=spec)
                     c.sync()
                     err = float((got[0] - want[0]).abs().max())
-                    worst["soft"] = max(worst["soft"], err)
+                    worst[kind] = max(worst[kind], err)
                     checked += 1
-                    chunk_cases += 1
-                    if not (torch.equal(got[1], want[1]) and bool(
+                    chunk_cases[kind] += 1
+                    if not (torch.equal(got[1], want[1]) and (bool(
                             torch.allclose(got[0], want[0], rtol=1e-4,
-                                           atol=1e-4))):
+                                           atol=1e-4)) if soft
+                            else torch.equal(got[0], want[0]))):
                         mismatches += 1
                         emit({"phase": "family_mismatch", "w": w,
                               "spec": spec.describe(), "B": 3, "m": m,
@@ -925,14 +933,42 @@ def family_parity(c) -> None:
                               "want": [x.tolist() for x in want]})
     launches = {k: v - before.get(k, 0)
                 for k, v in family.counter.by_variant.items()}
+    # the plain version itself: its steady diagonals replayed from a CUDA
+    # graph on the card (what every case above and family_main_path hold
+    # K7 to) against the eager sweep, one case per family x reduction
+    from repro_torch.core import engine
+    graph_cases = graph_mismatches = 0
+    for fam, soft in itertools.product(("twed", "erp", "local"),
+                                       (False, True)):
+        spec = family_spec(fam, soft)
+        q, r = series(4, 40), series(700)
+        lay = ops.prepare_reference(r, 2)
+        ex = ops.family_extras(spec, q, r, segment_width=2)
+        outs = [engine._dp_engine(q, lay, spec=spec, return_window=False,
+                                  n_valid=700, extras=ex, _graph=graph)
+                for graph in (False, True)]
+        c.sync()
+        graph_cases += 1
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            graph_mismatches += 1
+            emit({"phase": "family_plain_graph_mismatch",
+                  "spec": spec.describe(),
+                  "eager": [x.tolist() for x in outs[0]],
+                  "graph": [x.tolist() for x in outs[1]]})
     emit({"phase": "family_parity", "rule": "hard bit-equal to the plain "
-          "version, soft within atol=rtol=1e-4, ends equal",
+          "version, soft within atol=rtol=1e-4, ends equal; the plain "
+          "version's graph sweep bit-equal to its eager sweep",
           "n": n, "widths": list(widths), "cases": checked,
-          "soft_chunk_count_cases": chunk_cases, "warps_per_cta": P,
+          "chunk_count_cases": chunk_cases, "warps_per_cta": P,
+          "plain_graph_vs_eager_cases": graph_cases,
+          "plain_graph_mismatches": graph_mismatches,
+          "seconds": time.perf_counter() - t0,
           "mismatches": mismatches, "worst_abs_err": worst,
           "blocked_corner_cases_no_launch": blocked, "launches": launches})
     require(mismatches == 0, f"{mismatches} K7 cases differ from the "
                              f"plain version")
+    require(graph_mismatches == 0, f"{graph_mismatches} plain K7 graph "
+                                   f"sweeps differ from the eager sweep")
 
 
 def family_main_path(c, queries_np, ref_np, planted) -> dict:
@@ -1241,9 +1277,10 @@ def main(argv=None) -> int:
                   for name, rows in ptxas.items()},
               "ptxas_table": "chiprun_out/ptxas.json"})
         # every instantiation of K5/K6 (6 widths x reverse x band x
-        # distance) and of soft K7 (6 widths x 3 families x band x
-        # distance) reports, and none spills
+        # distance) and of hard and soft K7 (6 widths x 3 families x band
+        # x distance) reports, and none spills
         for lib, key, want in (("soft_wavefront", "reverse", 48),
+                               ("family_wavefront", "family", 72),
                                ("soft_family_wavefront", "family", 72)):
             rows = [r for r in ptxas.get(lib, []) if key in r]
             require(len(rows) == want,
@@ -1584,17 +1621,19 @@ def main(argv=None) -> int:
             "ctas_resident_per_sm": wavefront.soft_occupancy(
                 m, w, reverse=reverse) if cuda else None,
             "longest_query": wavefront.longest_query(soft_spec(1.0))}
-    soft_k7_regs = {(r.get("family"), r.get("w")): r.get("registers")
-                    for r in ptxas.get("soft_family_wavefront", [])
-                    if not r.get("band") and not r.get("abs")}
-    for fam in ("twed", "erp", "local"):
-        geo = family.family_geometry(m, fam)
-        geometry[f"K7-soft {fam}"] = {
-            "warps_per_cta": geo.warps, "ring_rows": geo.ring_rows,
-            "ring_groups": geo.slots, "smem_bytes_per_cta": geo.smem_bytes,
-            "registers": soft_k7_regs.get((fam, w)), "ctas": B,
-            "ctas_resident_per_sm": family.family_occupancy(m, w, fam)
-            if cuda else None}
+    for soft in (False, True):
+        k7_regs = {(r.get("family"), r.get("w")): r.get("registers")
+                   for r in ptxas.get(family.library_name(soft), [])
+                   if not r.get("band") and not r.get("abs")}
+        for fam in ("twed", "erp", "local"):
+            geo = family.family_geometry(m, fam)
+            geometry[f"K7{'-soft' if soft else ''} {fam}"] = {
+                "warps_per_cta": geo.warps, "ring_rows": geo.ring_rows,
+                "ring_groups": geo.slots,
+                "smem_bytes_per_cta": geo.smem_bytes,
+                "registers": k7_regs.get((fam, w)), "ctas": B,
+                "ctas_resident_per_sm": family.family_occupancy(
+                    m, w, fam, soft=soft) if cuda else None}
     for label in ("queries", "reference"):
         geo = k2[label]["geometry"]
         geometry[f"K2 {label}"] = {

@@ -16,18 +16,22 @@ segment width 8), with CUDA events, warm:
 And from the SASS of the built library (``cuobjdump -sass``), the
 steady step loop of K1 and K3 at width 8: its instructions, the steps it
 unrolls (two mins a cell) and the instructions a step.
-The soft-min K7 (``csrc/family_wavefront.cu``, twed / erp / local at
-gamma 0.7, chip_smoke's parameters), at the same workload:
+K7 (``csrc/family_wavefront.cu``, twed / erp / local at chip_smoke's
+parameters, gamma 0.7 under soft-min), hard-min and soft-min, at the
+same workload:
   * 1, 2, 4 and 8 warps per CTA at width 8, and 4 and 8 warps at every
-    other width, with the CTAs resident per SM; every output within
-    atol = rtol = 1e-4 of the default geometry's, ends equal;
-  * the MUFU ``ex2.approx`` / ``lg2.approx`` soft-min (as built) against
-    CUDA's full-accuracy ``exp2f`` / ``log2f``
+    other width, with the CTAs resident per SM; every output bit-equal
+    (hard) or within atol = rtol = 1e-4 (soft, ends equal) to the
+    default geometry's, after holding the build to the plain version on
+    1 to 2P+1 chunks;
+  * the steady loop at width 8 from the SASS: its instructions a step
+    (and, soft, its MUFU operations a step);
+  * soft-min only: the MUFU ``ex2.approx`` / ``lg2.approx`` soft-min
+    (as built) against CUDA's full-accuracy ``exp2f`` / ``log2f``
     (``-DREPRO_EXACT_SOFTMIN``): both held to the plain version on 1 to
     2P+1 chunks, then timed in turns (as built, exact, exact, as built),
-    and their PAPER costs compared;
-  * the steady loop of the as-built and exact builds at width 8 from the
-    SASS: its instructions a step and its MUFU operations a step.
+    and their PAPER costs compared, the exact build's steady loop
+    beside.
 The soft-min sDTW sweeps K5 / K6 (``csrc/wavefront.cu`` built with
 ``-DREPRO_SOFT``, gamma 1, the PAPER soft path's), at the same workload:
   * K5 at 1, 2, 4 and 8 warps per CTA at width 8, and at 4 and 8 warps
@@ -99,28 +103,35 @@ def steady_loop(sass: str, entry: str, marker: str = "FMNMX",
             "opcodes": dict(ops.most_common(8))}
 
 
-def soft_k7(log: list, q, r, series, timed) -> int:
-    """The soft K7 section (see the module docstring).  Returns the
-    number of parity mismatches."""
+def k7(log: list, q, r, series, timed, soft: bool) -> int:
+    """The K7 section of one build (see the module docstring).  Returns
+    the number of parity mismatches."""
     import torch
     from chip_smoke import FAMILY_GAMMA, FAMILY_PARAMS
     from repro_torch.configs.paper_sdtw import PAPER
     from repro_torch.core.spec import resolve_spec
     from repro_torch.kernels import build, family, ops, wavefront
-    exact = build.library("soft_family_wavefront", EXACT)
+    exact = build.library("soft_family_wavefront", EXACT) if soft else None
     w, m, n, B = PAPER.segment_width, PAPER.query_len, PAPER.ref_len, \
         PAPER.batch
     P = wavefront.WARPS
+    kind = "soft" if soft else "hard"
 
     def spec_of(fam):
-        return resolve_spec(None, family=fam, reduction="softmin",
-                            gamma=FAMILY_GAMMA, **FAMILY_PARAMS[fam])
+        return resolve_spec(None, family=fam,
+                            reduction="softmin" if soft else "hardmin",
+                            gamma=FAMILY_GAMMA if soft else None,
+                            **FAMILY_PARAMS[fam])
 
-    def close(a, b):
+    def same(a, b):
+        """Soft: within atol = rtol = 1e-4, ends equal; hard: bit-equal."""
+        if not soft:
+            return all(torch.equal(x, y) for x, y in zip(a, b))
         return torch.equal(a[1], b[1]) and bool(
             torch.allclose(a[0], b[0], rtol=1e-4, atol=1e-4))
 
-    # the soft-min builds against the plain version, 1 to 2P+1 chunks
+    # the build (and the exact soft-min build) against the plain version,
+    # 1 to 2P+1 chunks
     mismatches = cases = 0
     for fam in ("twed", "erp", "local"):
         spec = spec_of(fam)
@@ -132,17 +143,17 @@ def soft_k7(log: list, q, r, series, timed) -> int:
                 ex = ops.family_extras(spec, qq, rr, segment_width=2)
                 want = family.family_plain(qq, lay, ex, n=nn, w=2,
                                            spec=spec)
-                for lib in (None, exact):
+                for lib in ((None, exact) if soft else (None,)):
                     got = family.family_cuda(qq, lay, ex, n=nn, w=2,
                                              spec=spec, lib=lib)
                     torch.cuda.synchronize()
                     cases += 1
-                    mismatches += not close(got, want)
-    emit({"phase": "soft_k7_parity",
-          "builds": ["as built", "exact"],
+                    mismatches += not same(got, want)
+    emit({"phase": f"{kind}_k7_parity",
+          "builds": ["as built", "exact"] if soft else ["as built"],
           "cases": cases, "mismatches": mismatches,
-          "rule": "within atol=rtol=1e-4 of the plain version, ends equal"},
-         log)
+          "rule": "within atol=rtol=1e-4 of the plain version, ends equal"
+          if soft else "bit-equal to the plain version"}, log)
 
     lay = ops.prepare_reference(r, w)
     for fam in ("twed", "erp", "local"):
@@ -154,18 +165,19 @@ def soft_k7(log: list, q, r, series, timed) -> int:
                                      warps=warps)
             torch.cuda.synchronize()
             geo = family.family_geometry(m, fam, warps)
-            emit({"phase": "soft_k7_warps", "family": fam, "w": w,
+            emit({"phase": f"{kind}_k7_warps", "family": fam, "w": w,
                   "warps": warps, "ms": timed(lambda: family.family_cuda(
                       q, lay, ex, n=n, w=w, spec=spec, warps=warps), 2),
                   "ring_rows": geo.ring_rows, "smem_bytes": geo.smem_bytes,
-                  "ctas_per_sm": family.family_occupancy(m, w, fam, warps),
-                  "close_to_default": close(out, ref)}, log)
+                  "ctas_per_sm": family.family_occupancy(m, w, fam, warps,
+                                                         soft=soft),
+                  "same_as_default": same(out, ref)}, log)
         for ww in wavefront.WIDTHS:
             if ww == w:
                 continue
             wlay = ops.prepare_reference(r, ww)
             wex = ops.family_extras(spec, q, r, segment_width=ww)
-            row = {"phase": "soft_k7_width", "family": fam, "w": ww}
+            row = {"phase": f"{kind}_k7_width", "family": fam, "w": ww}
             for warps in (4, 8):
                 out = family.family_cuda(q, wlay, wex, n=n, w=ww, spec=spec,
                                          warps=warps)
@@ -174,9 +186,11 @@ def soft_k7(log: list, q, r, series, timed) -> int:
                     lambda: family.family_cuda(q, wlay, wex, n=n, w=ww,
                                                spec=spec, warps=warps), 2)
                 row[f"ctas_per_sm_{warps}_warps"] = family.family_occupancy(
-                    m, ww, fam, warps)
-                row[f"close_to_w{w}_{warps}_warps"] = close(out, ref)
+                    m, ww, fam, warps, soft=soft)
+                row[f"same_as_w{w}_{warps}_warps"] = same(out, ref)
             emit(row, log)
+        if not soft:
+            continue
         times = {"built": [], "exact": []}
         for which in ("built", "exact", "exact", "built"):
             lib = exact if which == "exact" else None
@@ -193,17 +207,20 @@ def soft_k7(log: list, q, r, series, timed) -> int:
              log)
 
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
-    for label, extra in (("as built", ()), ("exact", EXACT)):
-        lib_path = build._target("soft_family_wavefront", extra)[0]
+    for label, extra in ((("as built", ()), ("exact", EXACT)) if soft
+                         else (("as built", ()),)):
+        lib_path = build._target(family.library_name(soft), extra)[0]
         sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                               capture_output=True, text=True,
                               check=True).stdout
         for code, fam in enumerate(("twed", "erp", "local")):
             entry = next(
                 e for e in re.findall(r"Function : (\S+)", sass)
-                if f"soft_family_kernelILi8ELi{code}ELb0ELb0E" in e)
-            emit({"phase": "soft_k7_sass", "build": label, "family": fam,
-                  "w": 8, **steady_loop(sass, entry, "MUFU")}, log)
+                if f"family_kernelILi8ELi{code}ELb0ELb0E" in e)
+            emit({"phase": f"{kind}_k7_sass", "build": label,
+                  "family": fam, "w": 8,
+                  **steady_loop(sass, entry, "MUFU" if soft else "FMNMX")},
+                 log)
     return mismatches
 
 
@@ -471,7 +488,8 @@ def main(argv=None) -> int:
         emit({"phase": "sass", "kernel": name, "w": 8,
               **steady_loop(sass, entry, "FMNMX", 16)}, log)
 
-    soft_mismatches = soft_k7(log, q, r, series, timed)
+    soft_mismatches = k7(log, q, r, series, timed, soft=False)
+    soft_mismatches += k7(log, q, r, series, timed, soft=True)
     soft_mismatches += soft_k56(log, q, r, series, timed)
 
     out_dir = ROOT / "chiprun_out"

@@ -170,8 +170,14 @@ def sdtw_engine(queries: torch.Tensor, reference: torch.Tensor, *,
     return out + (bottom,) if return_bottom else out
 
 
+# diagonals one captured CUDA graph of the family sweep advances: d1 / d2
+# rotate through three fixed buffers and come back to their places
+GRAPH_DIAGONALS = 3
+
+
 def _dp_engine(q: torch.Tensor, r: torch.Tensor, *, spec: DPSpec,
-               return_window: bool, n_valid: int | None, extras):
+               return_window: bool, n_valid: int | None, extras,
+               _graph: bool = False):
     """Anti-diagonal sweep of the non-sdtw families (the counterpart of
     ``repro.core.engine._dp_engine``) and K7's plain version: the same
     rotating diagonals as :func:`sdtw_engine`, every cell through
@@ -184,6 +190,22 @@ def _dp_engine(q: torch.Tensor, r: torch.Tensor, *, spec: DPSpec,
     * cells (local): the lexicographic ``(value, column)`` minimum over
       every valid cell below ``big / 2``, and under soft-min a running
       logsumexp of ``-D / gamma`` beside it.
+
+    One diagonal's body (``diagonal``) takes its index ``t`` as a Python
+    int or as a (1,) int64 tensor on the device, and reads the reference
+    windows with ``unfold`` and ``index_select``.  With ``_graph``
+    (K7's plain version on the card, ``kernels.family.family_plain``, and
+    the tests) the steady stretch, where every row is live and no fold
+    edge falls (unbanded, diagonals ``M - 1 <= t < min(N, n_valid) - 1``),
+    runs with ``t`` on the device, ``GRAPH_DIAGONALS`` diagonals at a
+    time, rotating d1 / d2 through fixed buffers: on a CUDA tensor that
+    block is captured once as a CUDA graph on the tensor's own device
+    and replayed, so the host no longer paces one launch per operation
+    (on the CPU the same block runs eagerly).  The capture synchronizes
+    the device and empties the allocator's cache, so ``sdtw_engine``
+    leaves it off and sweeps every diagonal eagerly.  The arithmetic is
+    the same operations on the same operands, so both ways give the
+    same bits.
     """
     fam = spec.family
     local = fam == "local"
@@ -204,65 +226,128 @@ def _dp_engine(q: torch.Tensor, r: torch.Tensor, *, spec: DPSpec,
         else:
             extras = ()
 
-    def ext(x):
-        """Reversed + padded: diagonal t reads one contiguous slice."""
-        return torch.nn.functional.pad(torch.flip(x, (0,)), (M - 1, M - 1))
+    def windows(x):
+        """Reversed + padded, one row per diagonal: row ``start`` holds
+        ``x[t - i]`` at position i."""
+        return torch.nn.functional.pad(torch.flip(x, (0,)),
+                                       (M - 1, M - 1)).unfold(0, M, 1)
 
-    r_ext = ext(r)
-    rp_ext = bt_ext = q_prev = bl = None
+    r_win = windows(r)
+    rp_win = bt_win = q_prev = bl = None
     if fam == "twed":
-        rp_ext = ext(extras[0][:N])
+        rp_win = windows(extras[0][:N])
         q_prev = previous_samples(q)
     elif fam == "erp":
-        bt_ext, bl = ext(extras[0][:N]), extras[1]
+        bt_win, bl = windows(extras[0][:N]), extras[1]
     ii = torch.arange(M, device=dev)
     row0 = ii == 0
-    d1 = torch.full((B, M), big, dtype=torch.float32, device=dev)
-    d2 = d1
-    best = torch.full((B,), big, dtype=torch.float32, device=dev)
-    best_j = torch.full((B,), J_MAX if local else 0, dtype=torch.int64,
-                        device=dev)
-    m_run = torch.full((B,), -INF, dtype=torch.float32, device=dev)
-    s_run = torch.zeros((B,), dtype=torch.float32, device=dev)
-    corner_t = (M - 1) + (nv - 1)
-    for t in range(M + N - 1):
-        lo, hi = _valid_rows(t, M, N, spec.band)
-        start = N - 1 - t + (M - 1)
+
+    def diagonal(t, lo, hi, fold, corner, d1, d2, best, best_j, m_run,
+                 s_run):
+        """Diagonal t: rows [lo, hi] live, ``fold`` the local fold's rows
+        (lo_f, hi_f) or None, ``corner`` whether it holds the corner.
+        Returns the new diagonal and the folds."""
+        start = (N - 1 + M - 1) - t
+
+        def at(win):
+            return win[start] if isinstance(start, int) \
+                else win.index_select(0, start).squeeze(0)
         j = t - ii
         d0 = spec.family_cell(
-            q, r_ext[start:start + M], d1, torch.roll(d1, 1, -1),
-            torch.roll(d2, 1, -1), i=ii, j=j, is_row0=row0,
-            is_col0=j == 0, q_prev=q_prev,
-            r_prev=None if rp_ext is None else rp_ext[start:start + M],
-            top_boundary=None if bt_ext is None
-            else bt_ext[start:start + M], left_boundary=bl)
+            q, at(r_win), d1, torch.roll(d1, 1, -1), torch.roll(d2, 1, -1),
+            i=ii, j=j, is_row0=row0, is_col0=j == 0, q_prev=q_prev,
+            r_prev=None if rp_win is None else at(rp_win),
+            top_boundary=None if bt_win is None else at(bt_win),
+            left_boundary=bl)
         _mask_outside(d0, lo, hi, big)
-        if local:
+        if fold is not None:
             # fold the true columns only; diagonals ascend in t, so an
             # equal (value, column) keeps the first-seen row
-            lo_f, hi_f = max(lo, t - nv + 1), hi
-            if lo_f <= hi_f:
-                cells = d0[:, lo_f:hi_f + 1]
-                cols = j[lo_f:hi_f + 1]
-                v = cells.min(dim=1).values
-                jm = torch.where(cells == v[:, None], cols,
-                                 J_MAX).min(dim=1).values
-                take = ((v < best) | ((v == best) & (jm < best_j))) \
-                    & (v < big / 2)
-                best = torch.where(take, v, best)
-                best_j = torch.where(take, jm, best_j)
-                if spec.soft:
-                    x = -cells / spec.gamma     # masked cells weigh 0
-                    m_new = torch.maximum(m_run, x.max(dim=1).values)
-                    s_run = s_run * torch.exp(m_run - m_new) \
-                        + torch.exp(x - m_new[:, None]).sum(dim=1)
-                    m_run = m_new
-        elif t == corner_t:
+            lo_f, hi_f = fold
+            cells = d0[:, lo_f:hi_f + 1]
+            cols = j[lo_f:hi_f + 1]
+            v = cells.min(dim=1).values
+            jm = torch.where(cells == v[:, None], cols,
+                             J_MAX).min(dim=1).values
+            take = ((v < best) | ((v == best) & (jm < best_j))) \
+                & (v < big / 2)
+            best = torch.where(take, v, best)
+            best_j = torch.where(take, jm, best_j)
+            if spec.soft:
+                x = -cells / spec.gamma     # masked cells weigh 0
+                m_new = torch.maximum(m_run, x.max(dim=1).values)
+                s_run = s_run * torch.exp(m_run - m_new) \
+                    + torch.exp(x - m_new[:, None]).sum(dim=1)
+                m_run = m_new
+        elif corner:
             cand = d0[:, M - 1]
             take = cand < best          # a masked corner never takes
             best = torch.where(take, cand, best)
             best_j = torch.where(take, nv - 1, best_j)
+        return d0, best, best_j, m_run, s_run
+
+    def steady_run(t0, count, d1, d2, *folds):
+        """``count`` (a multiple of GRAPH_DIAGONALS) steady diagonals from
+        t0, with t on the device: d2, d1 and the new diagonal in three
+        fixed buffers, the folds updated in place."""
+        bufs = [d2.clone(), d1.clone(), torch.empty_like(d1)]
+        acc = [x.clone() for x in folds]
+        t_dev = torch.full((1,), t0, dtype=torch.int64, device=dev)
+        fold = (0, M - 1) if local else None
+
+        def block():
+            out = list(acc)
+            for k in range(GRAPH_DIAGONALS):
+                d0, *out = diagonal(t_dev, 0, M - 1, fold, False,
+                                    bufs[(k + 1) % 3], bufs[k], *out)
+                bufs[(k + 2) % 3].copy_(d0)
+                t_dev.add_(1)
+            for x, y in zip(acc, out):
+                x.copy_(y)
+        if dev.type == "cuda":
+            # on the tensors' device, whichever is current, with a capture
+            # stream there; errors only for this thread's unsafe calls
+            with torch.cuda.device(dev):
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g, stream=torch.cuda.Stream(dev),
+                                      capture_error_mode="thread_local"):
+                    block()
+                for _ in range(count // GRAPH_DIAGONALS):
+                    g.replay()
+                del g
+        else:
+            for _ in range(count // GRAPH_DIAGONALS):
+                block()
+        return (bufs[1], bufs[0], *acc)
+
+    t_a = M - 1
+    n_steady = 0
+    if _graph and spec.band is None:
+        n_steady = max(0, min(N, nv) - 1 - t_a) // GRAPH_DIAGONALS \
+            * GRAPH_DIAGONALS
+    d1 = torch.full((B, M), big, dtype=torch.float32, device=dev)
+    d2 = d1
+    folds = (torch.full((B,), big, dtype=torch.float32, device=dev),
+             torch.full((B,), J_MAX if local else 0, dtype=torch.int64,
+                        device=dev),
+             torch.full((B,), -INF, dtype=torch.float32, device=dev),
+             torch.zeros((B,), dtype=torch.float32, device=dev))
+    corner_t = (M - 1) + (nv - 1)
+    t = 0
+    while t < M + N - 1:
+        if t == t_a and n_steady:
+            d1, d2, *folds = steady_run(t, n_steady, d1, d2, *folds)
+            t += n_steady
+            continue
+        lo, hi = _valid_rows(t, M, N, spec.band)
+        fold = None
+        if local and max(lo, t - nv + 1) <= hi:
+            fold = (max(lo, t - nv + 1), hi)
+        d0, *folds = diagonal(t, lo, hi, fold,
+                              not local and t == corner_t, d1, d2, *folds)
         d2, d1 = d1, d0
+        t += 1
+    best, best_j, m_run, s_run = folds
     if local:
         cost = (-spec.gamma * (m_run + torch.log(s_run)) if spec.soft
                 else best)

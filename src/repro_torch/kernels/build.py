@@ -5,8 +5,9 @@ Each library is one ``csrc/*.cu`` source compiled by ``nvcc`` for
 headers, so a build takes seconds, not minutes); ``wavefront.cu`` gives
 three, its hard-min half, the same under ``-DREPRO_BF16`` (bf16-K1) and,
 under ``-DREPRO_SOFT``, its soft-min half; ``family_wavefront.cu`` (K7)
-gives two, hard-min and ``-DREPRO_SOFT``; both sources include
-``csrc/ring.cuh``, and both soft builds ``csrc/softmin.cuh``.  Every
+gives two, hard-min and ``-DREPRO_SOFT``, from one kernel template;
+both sources include ``csrc/ring.cuh``, and ``csrc/softmin.cuh`` serves
+the soft builds.  Every
 library is compiled by its own ``nvcc``
 process, all started together.  Libraries go to ``build/repro_torch/``
 at the repository root, named by a hash of the source, the headers, the

@@ -5,16 +5,14 @@
 // DPSpec.family_cell (:670-681, repro/core/spec.py:373), the extra
 // operands r_prev / bt / bl (:95-99, :797-831) and the folds CornerFold
 // (twed, erp; :304-337), LocalCellsFold (local; :341-385) and
-// SoftCellsFold (soft local; :389-442).  Built twice, by two nvcc side by
-// side, each build holding its own kernel:
-//   * hard-min, -fmad=false (libfamily_wavefront): family_kernel, one
-//     warp per query (the first half of this file);
-//   * soft-min, -DREPRO_SOFT (libsoft_family_wavefront):
-//     soft_family_kernel, one CTA of several warps per query (the second
-//     half).
-// Each is one template, instantiated over (segment width W, family, band,
-// distance).  Moving the hard build onto the multi-warp kernel is later
-// work; until then it stays the one-warp design below, bit for bit.
+// SoftCellsFold (soft local; :389-442).  One kernel template, built twice
+// by two nvcc side by side, the reduction chosen at compile time:
+//   * hard-min, -fmad=false (libfamily_wavefront): min, exact;
+//   * soft-min, -DREPRO_SOFT (libsoft_family_wavefront): the MUFU
+//     soft-min of csrc/softmin.cuh.
+// Each build instantiates family_kernel over (segment width W, family,
+// band, distance) and exports the same entries, the soft build's named
+// soft_family_wavefront_*.
 //
 // What bounds it on an H100: operations.  Every one of the B*M*N cells
 // computes the family's three transition costs, its boundary injections
@@ -23,327 +21,21 @@
 // whose exponentials and logarithms issue on the special-function units
 // (MUFU, 16 lanes per SM per clock against 128 FP32 lanes).  Bytes moved
 // are small: the queries, the reference and one extra operand in, two
-// numbers per query out.
-//
-// Folds (both kernels).  Corner (twed, erp): the lane that computes
-// (m-1, n-1) keeps it; a corner >= kBig/2 (blocked band) gives (+inf,
-// end 0).  Cells (local): every cell with 0 <= i < m, j < n and value <
-// kBig/2 enters a per-lane lexicographic (value, column) minimum, merged
-// across the lanes by shuffles (and, in the soft kernel, across the warps
-// through shared memory); under soft-min a running logsumexp of -D/gamma
-// over the same cells rides beside it.  The j < n guard matters: the
-// layout pads with 0, a plausible sample, and a local cell on a pad
-// column can score better than every real one.
-
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
-
-namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTwed = 0, kErp = 1, kLocal = 2;
-
-template <bool ABS>
-__device__ __forceinline__ float dist(float a, float b) {
-  const float d = __fsub_rn(a, b);
-  return ABS ? fabsf(d) : __fmul_rn(d, d);
-}
-
-}  // namespace
-
-#ifndef REPRO_SOFT
-
-// ---------------------------------------------------------------------
-// The hard-min kernel: one warp per query.
-//
-// Design: K1's first, one-warp design.  The zero-padded
-// reference is cut into chunks of 32*W columns, lane l owns columns
-// chunk*32*W + l*W + k and holds their samples, their extra operand
-// (twed's r[j-1], erp's gap prefix bt[j]) and the previous row's W cells
-// in registers; at step t lane l computes row i = t - l, its left
-// neighbour arrives from lane l-1 by __shfl_up_sync, lane 0 reads a
-// double-buffered shared-memory strip written by lane 31 in the previous
-// chunk, and a __syncwarp ends every step (see csrc/wavefront.cu for the
-// miscompile it prevents).  Per-row operands are read each step: q[i],
-// twed's q[i-1] (0 at i = 0), erp's bl[b, i].  The boundaries of
-// family_cell are injected at i == 0 and j == 0: the carries' edge values
-// (the sentinel kBig) are never read there.
-//
-// Exactness: every operation is the plain version's, in its operand
-// order, rounded as it rounds (__fsub_rn / __fmul_rn / __fadd_rn, no
-// fused multiply-add; min is exact); twed's |i - j| is an exact int to
-// f32 conversion; the constants nu + lam, 2 nu, g, gap_penalty and
-// match_reward arrive as f32 rounded once from double, as torch rounds
-// the plain version's Python scalars.  Every in-band cell of twed and erp
-// is reachable from the origin and every local cell has the 0 boundary,
-// so the sentinel never wins a valid cell's min and the kernel equals the
-// engine (which uses +inf) bit for bit.
-
-namespace {
-
-constexpr float kBig = 3.0e38f;    // KERNEL_BIG
-
-struct Params {
-  float nl;      // nu + lam (twed)
-  float two_nu;  // 2 nu (twed)
-  float gap;     // g (erp)
-  float gp;      // gap_penalty (local)
-  float mr;      // match_reward (local)
-};
-
-// DPSpec.family_cell: transition3, the boundary injections, reduce3 and
-// local's restart floor, in the plain version's operand order.
-template <int FAM, bool ABS>
-__device__ __forceinline__ float family_cell(float qv, float rv, float xv,
-                                             float qp, float blv, float left,
-                                             float up, float upleft, int i,
-                                             int j, const Params& p) {
-  const bool row0 = i == 0, col0 = j == 0;
-  float t_left, t_up, t_diag, up_b, left_b, upleft_b;
-  if constexpr (FAM == kTwed) {            // xv = r[j-1], qp = q[i-1]
-    t_left = __fadd_rn(dist<ABS>(rv, xv), p.nl);
-    t_up = __fadd_rn(dist<ABS>(qv, qp), p.nl);
-    t_diag = __fadd_rn(__fadd_rn(dist<ABS>(qv, rv), dist<ABS>(qp, xv)),
-                       __fmul_rn(p.two_nu, static_cast<float>(abs(i - j))));
-    up_b = row0 ? kBig : up;
-    left_b = col0 ? kBig : left;
-    upleft_b = (row0 || col0) ? ((row0 && col0) ? 0.f : kBig) : upleft;
-  } else if constexpr (FAM == kErp) {      // xv = bt[j], blv = bl[i]
-    t_left = dist<ABS>(rv, p.gap);
-    t_up = dist<ABS>(qv, p.gap);
-    t_diag = dist<ABS>(qv, rv);
-    up_b = row0 ? xv : up;
-    left_b = col0 ? blv : left;
-    upleft_b = row0 ? __fsub_rn(xv, dist<ABS>(rv, p.gap))
-                    : (col0 ? __fsub_rn(blv, dist<ABS>(qv, p.gap)) : upleft);
-  } else {                                 // local
-    t_left = p.gp;
-    t_up = p.gp;
-    t_diag = __fsub_rn(dist<ABS>(qv, rv), p.mr);
-    up_b = row0 ? 0.f : up;
-    left_b = col0 ? 0.f : left;
-    upleft_b = (row0 || col0) ? 0.f : upleft;
-  }
-  float val = fminf(fminf(__fadd_rn(left_b, t_left), __fadd_rn(up_b, t_up)),
-                    __fadd_rn(upleft_b, t_diag));
-  if constexpr (FAM == kLocal) val = fminf(val, 0.f);
-  return val;
-}
-
-template <int W, int FAM, bool BAND, bool ABS>
-__global__ void __launch_bounds__(32)
-family_kernel(const float* __restrict__ q, const float* __restrict__ r,
-              const float* __restrict__ rx, const float* __restrict__ bl,
-              int m, int n, int chunks, int band, Params p,
-              float* __restrict__ cost_out, int* __restrict__ end_out) {
-  extern __shared__ float strip[];            // [2][m]
-  const int lane = threadIdx.x;
-  const size_t row = static_cast<size_t>(blockIdx.x) * m;
-  const float* qb = q + row;
-  const float* blb = FAM == kErp ? bl + row : nullptr;
-
-  float prev[W];                              // row i-1 of my W cells
-  float corner = kBig;                        // corner fold
-  float best_v = kBig;                        // local fold: (value,
-  int best_j = INT_MAX;                       //   column) minimum
-
-  for (int c = 0; c < chunks; ++c) {
-    const int j0 = (c * 32 + lane) * W;
-    float rv[W], xv[W];
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      rv[k] = r[j0 + k];
-      xv[k] = FAM == kLocal ? 0.f : rx[j0 + k];
-      prev[k] = kBig;
-    }
-    const float* rd = strip + (c & 1) * m;
-    float* wr = strip + ((c + 1) & 1) * m;
-
-    float left = (lane == 0 && c > 0) ? rd[0] : kBig;
-    float upleft = kBig;
-
-    for (int t = 0; t < m + 31; ++t) {
-      const int i = t - lane;
-      const int ic = min(max(i, 0), m - 1);
-      const float qv = qb[ic];
-      float qp = 0.f, blv = 0.f;
-      if (FAM == kTwed) qp = (i > 0 && i < m) ? qb[i - 1] : 0.f;  // q[-1]=0
-      if (FAM == kErp) blv = blb[ic];
-      const bool live = i >= 0 && i < m;
-      float lft = left, ul = upleft;
-#pragma unroll
-      for (int k = 0; k < W; ++k) {
-        const int j = j0 + k;
-        const float up = prev[k];
-        float val = family_cell<FAM, ABS>(qv, rv[k], xv[k], qp, blv, lft, up,
-                                          ul, i, j, p);
-        if (BAND && abs(i - j) > band) {
-          val = kBig;                         // out of band: never folded
-        } else if (FAM != kLocal) {
-          if (i == m - 1 && j == n - 1) corner = val;
-        } else if (live && j < n && val < 0.5f * kBig) {
-          if (val < best_v || (val == best_v && j < best_j)) {
-            best_v = val;
-            best_j = j;
-          }
-        }
-        ul = up;
-        prev[k] = val;
-        lft = val;
-      }
-      // my last cell is the left neighbour of lane+1's first cell next step
-      const float from_left = __shfl_up_sync(kFull, lft, 1);
-      if (lane == 31 && live) wr[i] = lft;
-      upleft = left;
-      if (lane == 0) {
-        left = (c > 0 && t + 1 < m) ? rd[t + 1] : kBig;
-      } else {
-        left = from_left;
-      }
-      // K1's per-step barrier, kept for the same reason (csrc/wavefront.cu)
-      __syncwarp();
-    }
-    __syncwarp();
-  }
-
-  if (FAM != kLocal) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      corner = fminf(corner, __shfl_down_sync(kFull, corner, off));
-    if (lane == 0) {
-      const bool blocked = corner >= 0.5f * kBig;
-      cost_out[blockIdx.x] = blocked ? INFINITY : corner;
-      end_out[blockIdx.x] = blocked ? 0 : n - 1;
-    }
-    return;
-  }
-  // lexicographic (value, column) merge
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(kFull, best_v, off);
-    const int oj = __shfl_down_sync(kFull, best_j, off);
-    if (ov < best_v || (ov == best_v && oj < best_j)) {
-      best_v = ov;
-      best_j = oj;
-    }
-  }
-  if (lane == 0) {
-    cost_out[blockIdx.x] = best_v;
-    end_out[blockIdx.x] = best_j;
-  }
-}
-
-template <int W, int FAM, bool BAND, bool ABS>
-int launch(const float* q, const float* r, const float* rx, const float* bl,
-           int batch, int m, int n, int chunks, int band, const Params& p,
-           float* cost, int* end, cudaStream_t stream) {
-  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(m);
-  auto kernel = family_kernel<W, FAM, BAND, ABS>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<batch, 32, smem, stream>>>(q, r, rx, bl, m, n, chunks, band, p,
-                                      cost, end);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int W, int FAM>
-int dispatch_family(const float* q, const float* r, const float* rx,
-                    const float* bl, int batch, int m, int n, int chunks,
-                    int band, int abs_dist, const Params& p, float* cost,
-                    int* end, cudaStream_t s) {
-  const bool banded = band >= 0;
-#define REPRO_CASE(BND, ABSD)                                              \
-  if (banded == BND && !!abs_dist == ABSD)                                 \
-    return launch<W, FAM, BND, ABSD>(q, r, rx, bl, batch, m, n, chunks,    \
-                                     band, p, cost, end, s);
-  REPRO_CASE(false, false)
-  REPRO_CASE(false, true)
-  REPRO_CASE(true, false)
-  REPRO_CASE(true, true)
-#undef REPRO_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <int W>
-int dispatch(const float* q, const float* r, const float* rx,
-             const float* bl, int batch, int m, int n, int chunks, int band,
-             int family, int abs_dist, const Params& p, float* cost,
-             int* end, cudaStream_t s) {
-  switch (family) {
-    case kTwed: return dispatch_family<W, kTwed>(q, r, rx, bl, batch, m, n, chunks, band, abs_dist, p, cost, end, s);
-    case kErp: return dispatch_family<W, kErp>(q, r, rx, bl, batch, m, n, chunks, band, abs_dist, p, cost, end, s);
-    case kLocal: return dispatch_family<W, kLocal>(q, r, rx, bl, batch, m, n, chunks, band, abs_dist, p, cost, end, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-}  // namespace
-
-extern "C" {
-
-// q: (batch, m) f32; r: (chunks_total * 32 * width,) f32, zero-padded past
-// n; rx: twed's r_prev or erp's bt, laid out like r (null for local); bl:
-// erp's (batch, m) query prefix (null otherwise); the kernel visits the
-// first `chunks` chunks.  band < 0: unbanded.  family: 0 twed, 1 erp,
-// 2 local.  cost (batch,) f32, end (batch,) i32.  Returns
-// cudaGetLastError() (cudaErrorInvalidValue for a width or family with no
-// instantiation).
-int family_wavefront_launch(const void* q, const void* r, const void* rx,
-                            const void* bl, int batch, int m, int n,
-                            int chunks, int band, int width, int family,
-                            int abs_dist, float nl, float two_nu, float gap,
-                            float gap_penalty, float match_reward,
-                            void* cost, void* end, void* stream) {
-  const float* qf = static_cast<const float*>(q);
-  const float* rf = static_cast<const float*>(r);
-  const float* xf = static_cast<const float*>(rx);
-  const float* bf = static_cast<const float*>(bl);
-  float* c = static_cast<float*>(cost);
-  int* e = static_cast<int*>(end);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Params p{nl, two_nu, gap, gap_penalty, match_reward};
-#define REPRO_WIDTH(WD)                                                     \
-  case WD:                                                                  \
-    return dispatch<WD>(qf, rf, xf, bf, batch, m, n, chunks, band, family, \
-                        abs_dist, p, c, e, s);
-  switch (width) {
-    REPRO_WIDTH(2)
-    REPRO_WIDTH(4)
-    REPRO_WIDTH(8)
-    REPRO_WIDTH(14)
-    REPRO_WIDTH(16)
-    REPRO_WIDTH(32)
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef REPRO_WIDTH
-}
-
-}  // extern "C"
-
-#endif  // !REPRO_SOFT
-
-#ifdef REPRO_SOFT
-
-// ---------------------------------------------------------------------
-// The soft-min kernel: one CTA of P warps per query (the hard-min design
-// of csrc/wavefront.cu).
+// numbers per query out.  One warp per query leaves the per-step chain
+// exposed (a load, the cell chain, a shuffle and a barrier a step), so a
+// query runs as one CTA of P warps (the hard-min design of
+// csrc/wavefront.cu):
 //
 //   * Chunks of 32*W columns are dealt to the warps round-robin; lane l of
 //     the warp that sweeps chunk c owns columns c*32*W + l*W + k and at
 //     step t computes row i = t - l.  Lane 31's last cell of each row goes
 //     to the next chunk's warp through the shared-memory ring of
 //     csrc/ring.cuh (32-row groups, a full/empty mbarrier pair each, one
-//     f32 a row: K7 has no start lane), walked by the hard-min kernel's
-//     RingWalk: in each ring step the arrivals come before the waits, the
-//     last chunk writes no ring and chunk 0 reads none, a warp with no
-//     chunk touches no mbarrier.  Lane 0 keeps its upleft as the previous
-//     step's left.  Sizes come from the host
-//     (kernels/family.py::family_geometry).
+//     f32 a row: K7 has no start lane), walked by RingWalk: in each ring
+//     step the arrivals come before the waits, the last chunk writes no
+//     ring and chunk 0 reads none, a warp with no chunk touches no
+//     mbarrier.  Lane 0 keeps its upleft as the previous step's left.
+//     Sizes come from the host (kernels/family.py::family_geometry).
 //   * The query is staged once in shared memory, padded with 32 zeros on
 //     each side (the zero at index -1 is twed's q[-1] = 0, with no
 //     branch); each lane loads its next step's sample one step ahead.
@@ -356,33 +48,70 @@ int family_wavefront_launch(const void* q, const void* r, const void* rx,
 //     d(q_i-1, r_j-1) is the lane's own d(q, r) of column j-1 one step
 //     earlier, carried in registers (the same operands, so the same
 //     value), and |i - j| is one int-to-float conversion a step.
-//   * Blocks of 32 steps, opened by the ring step, as in the hard-min
-//     kernel.  A block is steady when it meets neither row 0 nor row m-1
-//     (nor rows outside [0, m)), its chunk holds neither column 0 nor
-//     column n-1 nor padding, and (banded) every cell of the block lies in
-//     the band.  Steady blocks carry no row, column, live, band or fold
-//     edge test; the others (EDGE) test everything, as family_cell does.
-//   * The soft-min is csrc/softmin.cuh's, shared with K5/K6: the min's
-//     own term fixed at 1, two MUFU ex2.approx and one lg2.approx a
-//     reduce3 (one and one a reduce2) on arguments pre-scaled by
-//     log2(e)/gamma (-DREPRO_EXACT_SOFTMIN: full accuracy).  The two
-//     operands that do not depend on the left neighbour (up, upleft) are
-//     ordered off the chain; the left one costs two min/max on it.  Soft
-//     local's per-lane running logsumexp (base 2) rescales only when its
-//     running max moves, one exponential a cell, and the per-warp (max,
-//     sum) pairs are merged through shared memory after the sweep.
-//   * Sentinel SOFT_BIG = 1e30, finite: exp2 of -SOFT_BIG*log2(e)/gamma
-//     is 0, never NaN.
-// Exactness: held to the plain version within atol = rtol = 1e-4, with
-// equal ends (transcendentals and fused multiply-adds round differently).
+//   * Blocks of 32 steps, opened by the ring step.  A block is steady when
+//     it meets neither row 0 nor row m-1 (nor rows outside [0, m)), its
+//     chunk holds neither column 0 nor column n-1 nor padding, and
+//     (banded) every cell of the block lies in the band.  Steady blocks
+//     carry no row, column, live, band or fold edge test; the others
+//     (EDGE) test everything, as family_cell does.
+//   * Hard-min: reduce3 is fminf(fminf(left, up), upleft) and local's
+//     floor fminf(v, 0), as the plain version orders them.  Soft-min:
+//     csrc/softmin.cuh's, shared with K5/K6 (the min's own term fixed at
+//     1, two MUFU ex2.approx and one lg2.approx a reduce3, one and one a
+//     reduce2, on arguments pre-scaled by log2(e)/gamma); the two operands
+//     that do not depend on the left neighbour (up, upleft) are ordered off
+//     the chain.
+//
+// Folds.  Corner (twed, erp): the lane that computes (m-1, n-1) keeps it;
+// a corner >= kBig/2 (blocked band) gives (+inf, end 0).  Cells (local):
+// every cell with 0 <= i < m, j < n and value < kBig/2 enters a per-lane
+// lexicographic (value, column) minimum, merged across the lanes by
+// shuffles and across the warps through shared memory; under soft-min a
+// running logsumexp of -D/gamma (base 2, rescaled only when its running
+// max moves) rides beside it.  The j < n guard matters: the layout pads
+// with 0, a plausible sample, and a local cell on a pad column can score
+// better than every real one.
+//
+// Exactness.  Hard-min: every operation is the plain version's, in its
+// operand order, rounded as it rounds (__fsub_rn / __fmul_rn /
+// __fadd_rn where a product meets a sum, and no fused multiply-add
+// anywhere under -fmad=false; min is exact).  The hoists are exact:
+// the same operands give the same roundings, and |i - j| as
+// fabsf(float(i - j0) - k) is exact below 2^24.  The constants nu + lam,
+// 2 nu, g, gap_penalty and match_reward arrive as f32 rounded once from
+// double, as torch rounds the plain version's Python scalars.  Every
+// in-band cell of twed and erp is reachable from the origin and every
+// local cell has the 0 boundary, so the sentinel KERNEL_BIG never wins a
+// valid cell's min and the kernel equals the engine (which uses +inf) bit
+// for bit.  Soft-min: held to the plain version within atol = rtol =
+// 1e-4, with equal ends (transcendentals and fused multiply-adds round
+// differently); its sentinel SOFT_BIG = 1e30 is finite, so exp2 of
+// -SOFT_BIG*log2(e)/gamma is 0, never NaN.
+
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 
 #include "ring.cuh"
 #include "softmin.cuh"
 
+#ifdef REPRO_SOFT
+#define REPRO_ENTRY(name) soft_##name
+#else
+#define REPRO_ENTRY(name) name
+#endif
+
 namespace {
 
-constexpr float kSoftBig = 1e30f;  // SOFT_BIG of repro/core/spec.py
-constexpr float kBig = kSoftBig;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTwed = 0, kErp = 1, kLocal = 2;
+#ifdef REPRO_SOFT
+constexpr bool kSoft = true;
+constexpr float kBig = 1e30f;      // SOFT_BIG of repro/core/spec.py
+#else
+constexpr bool kSoft = false;
+constexpr float kBig = 3.0e38f;    // KERNEL_BIG
+#endif
 constexpr int kMaxWarps = 8;      // warps per CTA (kernels/wavefront.py)
 constexpr int kQPad = 32;         // zeros each side of the staged query
 
@@ -392,14 +121,37 @@ struct Params {
   float gap;     // g (erp)
   float gp;      // gap_penalty (local)
   float mr;      // match_reward (local)
-  float k2;      // log2(e) / gamma: exp(-x / gamma) = exp2(-x * k2)
-  float gl;      // gamma * ln 2: gamma * log(s) = gl * log2(s)
+  float k2;      // soft: log2(e) / gamma, exp(-x / gamma) = exp2(-x * k2)
+  float gl;      // soft: gamma * ln 2, gamma * log(s) = gl * log2(s)
 };
 
-// DPSpec.reduce2(v, 0), local's restart floor:
-// min(v, 0) - gamma * log(1 + exp(-|v| / gamma)).
-__device__ __forceinline__ float smin0(float v, const Params& p) {
-  return fmaf(-p.gl, lg2(1.f + ex2(-fabsf(v) * p.k2)), fminf(v, 0.f));
+template <bool ABS>
+__device__ __forceinline__ float dist(float a, float b) {
+  const float d = __fsub_rn(a, b);
+  return ABS ? fabsf(d) : __fmul_rn(d, d);
+}
+
+// a + b * c: rounded twice in the hard build, as the plain version rounds
+// it; the soft build lets the compiler fuse it
+__device__ __forceinline__ float add_mul(float a, float b, float c) {
+  if constexpr (kSoft) return a + b * c;
+  return __fadd_rn(a, __fmul_rn(b, c));
+}
+
+// DPSpec.reduce3: a the left operand (on the chain), b and c up and
+// upleft
+__device__ __forceinline__ float reduce3(float a, float b, float c,
+                                         const Params& p) {
+  if constexpr (kSoft) return smin3(a, b, c, p.k2, p.gl);
+  return fminf(fminf(a, b), c);
+}
+
+// DPSpec.reduce2(v, 0), local's restart floor; under soft-min
+// min(v, 0) - gamma * log(1 + exp(-|v| / gamma))
+__device__ __forceinline__ float floor0(float v, const Params& p) {
+  if constexpr (kSoft)
+    return fmaf(-p.gl, lg2(1.f + ex2(-fabsf(v) * p.k2)), fminf(v, 0.f));
+  return fminf(v, 0.f);
 }
 
 // One warp's registers: its W columns of the current chunk, the carries
@@ -430,8 +182,8 @@ struct StepIO : RingIO {
 };
 
 // A local cell into the lane's folds: the (value, column) minimum, the
-// earliest column on a tie; and the running logsumexp of -val/gamma,
-// rescaled only when its max moves.
+// earliest column on a tie; under soft-min the running logsumexp of
+// -val/gamma, rescaled only when its max moves.
 template <int W>
 __device__ __forceinline__ void fold_cell(Lane<W>& L, float val, int j,
                                           const Params& p) {
@@ -439,11 +191,13 @@ __device__ __forceinline__ void fold_cell(Lane<W>& L, float val, int j,
     L.best_v = val;
     L.best_j = j;
   }
-  const float x = -val * p.k2;
-  const float d = x - L.run_m;
-  const float e = ex2(-fabsf(d));
-  L.run_s = d > 0.f ? fmaf(L.run_s, e, 1.f) : L.run_s + e;
-  L.run_m = fmaxf(L.run_m, x);
+  if constexpr (kSoft) {
+    const float x = -val * p.k2;
+    const float d = x - L.run_m;
+    const float e = ex2(-fabsf(d));
+    L.run_s = d > 0.f ? fmaf(L.run_s, e, 1.f) : L.run_s + e;
+    L.run_m = fmaxf(L.run_m, x);
+  }
 }
 
 // One step of one chunk: lane l computes row i = t - l of its W columns.
@@ -481,7 +235,8 @@ __device__ __forceinline__ void step(Lane<W>& L, int t, int u, int lane,
     if constexpr (FAM == kTwed) {
       tl = L.tl[k];
       const float dc = dist<ABS>(qv, L.rv[k]);
-      td = (dc + dl) + p.two_nu * fabsf(fd - static_cast<float>(k));
+      // (d(q_i, r_j) + d(q_i-1, r_j-1)) + 2 nu |i - j|
+      td = add_mul(dc + dl, p.two_nu, fabsf(fd - static_cast<float>(k)));
       dl = L.dd[k];                         // d(q_i-1, r_j) for column j+1
       L.dd[k] = dc;
     } else if constexpr (FAM == kErp) {
@@ -518,8 +273,8 @@ __device__ __forceinline__ void step(Lane<W>& L, int t, int u, int lane,
         }
       }
     }
-    float val = smin3(left_b + tl, up_b + tup, ul_b + td, p.k2, p.gl);
-    if constexpr (FAM == kLocal) val = smin0(val, p);
+    float val = reduce3(left_b + tl, up_b + tup, ul_b + td, p);
+    if constexpr (FAM == kLocal) val = floor0(val, p);
     if (EDGE) {
       if (BAND && abs(i - j) > band) {
         val = kBig;                         // out of band: never folded
@@ -542,16 +297,17 @@ __device__ __forceinline__ void step(Lane<W>& L, int t, int u, int lane,
   L.left = lane == 0 ? next_left : from_left;
   if constexpr (FAM == kTwed) L.qp = qv;
   if constexpr (FAM == kErp) L.bl = next_bl;
-  // the hard-min kernel's per-step barrier, kept for the same reason
+  // the per-step barrier of every kernel on the ring (csrc/wavefront.cu:
+  // nvcc 12.8 miscompiles the wavefront without it)
   __syncwarp();
 }
 
 template <int W, int FAM, bool BAND, bool ABS>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1)
-soft_family_kernel(const float* __restrict__ q, const float* __restrict__ r,
-                   const float* __restrict__ rx, const float* __restrict__ bl,
-                   int m, int n, int chunks, int band, int slots, Params p,
-                   float* __restrict__ cost_out, int* __restrict__ end_out) {
+family_kernel(const float* __restrict__ q, const float* __restrict__ r,
+              const float* __restrict__ rx, const float* __restrict__ bl,
+              int m, int n, int chunks, int band, int slots, Params p,
+              float* __restrict__ cost_out, int* __restrict__ end_out) {
   // [warps][slots][2] mbarriers | query [m + 64] f32 | rings [warps]
   // [slots * 32] f32
   extern __shared__ __align__(16) unsigned char smem[];
@@ -586,7 +342,7 @@ soft_family_kernel(const float* __restrict__ q, const float* __restrict__ r,
   L.corner = kBig;
   L.best_v = kBig;
   L.best_j = INT_MAX;
-  L.run_m = -kSoftBig;                      // finite: no -inf - -inf
+  L.run_m = -kBig;                          // finite: no -inf - -inf
   L.run_s = 0.f;
   StepIO io;
   io.qrow = sq + kQPad + 1 - lane;
@@ -646,21 +402,23 @@ soft_family_kernel(const float* __restrict__ q, const float* __restrict__ r,
 
   // merge the lanes of each warp by shuffles, then the warps through
   // shared memory: the corner's minimum (one lane holds it); local's
-  // lexicographic (value, column) minimum and the running-max rule for
-  // the logsumexp pairs
+  // lexicographic (value, column) minimum and, under soft-min, the
+  // running-max rule for the logsumexp pairs
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     if (FAM != kLocal) {
       L.corner = fminf(L.corner, __shfl_down_sync(kFull, L.corner, off));
-    } else {
-      const float ov = __shfl_down_sync(kFull, L.best_v, off);
-      const int oj = __shfl_down_sync(kFull, L.best_j, off);
+      continue;
+    }
+    const float ov = __shfl_down_sync(kFull, L.best_v, off);
+    const int oj = __shfl_down_sync(kFull, L.best_j, off);
+    if (ov < L.best_v || (ov == L.best_v && oj < L.best_j)) {
+      L.best_v = ov;
+      L.best_j = oj;
+    }
+    if constexpr (kSoft) {
       const float om = __shfl_down_sync(kFull, L.run_m, off);
       const float os = __shfl_down_sync(kFull, L.run_s, off);
-      if (ov < L.best_v || (ov == L.best_v && oj < L.best_j)) {
-        L.best_v = ov;
-        L.best_j = oj;
-      }
       const float mx = fmaxf(L.run_m, om);
       L.run_s = L.run_s * exp2f(L.run_m - mx) + os * exp2f(om - mx);
       L.run_m = mx;
@@ -669,12 +427,15 @@ soft_family_kernel(const float* __restrict__ q, const float* __restrict__ r,
   if (lane == 0) {
     fold_v[warp] = FAM != kLocal ? L.corner : L.best_v;
     fold_j[warp] = L.best_j;
-    fold_m[warp] = L.run_m;
-    fold_s[warp] = L.run_s;
+    if (kSoft) {
+      fold_m[warp] = L.run_m;
+      fold_s[warp] = L.run_s;
+    }
   }
   __syncthreads();
   if (threadIdx.x != 0) return;
-  float bv = fold_v[0], rm = fold_m[0], rs = fold_s[0];
+  float bv = fold_v[0], rm = kSoft ? fold_m[0] : 0.f;
+  float rs = kSoft ? fold_s[0] : 0.f;
   int bj = fold_j[0];
   for (int w = 1; w < warps; ++w) {
     if (FAM != kLocal) {
@@ -685,16 +446,18 @@ soft_family_kernel(const float* __restrict__ q, const float* __restrict__ r,
       bv = fold_v[w];
       bj = fold_j[w];
     }
-    const float mx = fmaxf(rm, fold_m[w]);
-    rs = rs * exp2f(rm - mx) + fold_s[w] * exp2f(fold_m[w] - mx);
-    rm = mx;
+    if constexpr (kSoft) {
+      const float mx = fmaxf(rm, fold_m[w]);
+      rs = rs * exp2f(rm - mx) + fold_s[w] * exp2f(fold_m[w] - mx);
+      rm = mx;
+    }
   }
   if (FAM != kLocal) {
     const bool blocked = bv >= 0.5f * kBig;
     cost_out[blockIdx.x] = blocked ? INFINITY : bv;
     end_out[blockIdx.x] = blocked ? 0 : n - 1;
   } else {
-    cost_out[blockIdx.x] = -p.gl * (rm + log2f(rs));
+    cost_out[blockIdx.x] = kSoft ? -p.gl * (rm + log2f(rs)) : bv;
     end_out[blockIdx.x] = bj;
   }
 }
@@ -713,7 +476,7 @@ int launch(const float* q, const float* r, const float* rx, const float* bl,
            int slots, const Params& p, float* cost, int* end,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(m, warps, slots);
-  auto kernel = soft_family_kernel<W, FAM, BAND, ABS>;
+  auto kernel = family_kernel<W, FAM, BAND, ABS>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -728,7 +491,7 @@ int launch(const float* q, const float* r, const float* rx, const float* bl,
 template <int W, int FAM, bool BAND, bool ABS>
 int occupancy(int m, int warps, int slots) {
   const size_t smem = smem_bytes(m, warps, slots);
-  auto kernel = soft_family_kernel<W, FAM, BAND, ABS>;
+  auto kernel = family_kernel<W, FAM, BAND, ABS>;
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel,
@@ -783,7 +546,7 @@ int dispatch(const Call& a, int family, int abs_dist) {
   }
 }
 
-int soft_entry(const Call& a, int width, int family, int abs_dist) {
+int entry(const Call& a, int width, int family, int abs_dist) {
   const int bad = a.op == 0 ? static_cast<int>(cudaErrorInvalidValue)
                             : -static_cast<int>(cudaErrorInvalidValue);
   if (a.warps < 1 || a.warps > kMaxWarps || a.slots < 1) return bad;
@@ -809,17 +572,16 @@ extern "C" {
 // erp's (batch, m) query prefix (null otherwise); the kernel visits the
 // first `chunks` chunks.  band < 0: unbanded.  family: 0 twed, 1 erp,
 // 2 local.  warps: warps per CTA (1..8); slots: ring groups of 32 rows per
-// link (kernels/family.py::family_geometry).  cost (batch,) f32, end
+// link (kernels/family.py::family_geometry).  gamma: the soft-min
+// temperature (the hard build reads none).  cost (batch,) f32, end
 // (batch,) i32.  Returns cudaGetLastError() (cudaErrorInvalidValue for a
 // width, family or geometry with no instantiation).
-int soft_family_wavefront_launch(const void* q, const void* r,
-                                 const void* rx, const void* bl, int batch,
-                                 int m, int n, int chunks, int band,
-                                 int width, int family, int abs_dist,
-                                 int warps, int slots, float nl,
-                                 float two_nu, float gap, float gap_penalty,
-                                 float match_reward, float gamma, void* cost,
-                                 void* end, void* stream) {
+int REPRO_ENTRY(family_wavefront_launch)(
+    const void* q, const void* r, const void* rx, const void* bl, int batch,
+    int m, int n, int chunks, int band, int width, int family, int abs_dist,
+    int warps, int slots, float nl, float two_nu, float gap,
+    float gap_penalty, float match_reward, float gamma, void* cost,
+    void* end, void* stream) {
   // the base-2 constants, formed in double and rounded once
   const double g = gamma;
   const Params p{nl, two_nu, gap, gap_penalty, match_reward,
@@ -830,24 +592,22 @@ int soft_family_wavefront_launch(const void* q, const void* r,
                batch, m, n, chunks, band, warps, slots, p,
                static_cast<float*>(cost), static_cast<int*>(end),
                static_cast<cudaStream_t>(stream)};
-  return soft_entry(a, width, family, abs_dist);
+  return entry(a, width, family, abs_dist);
 }
 
 // CTAs of the instantiation resident per SM at this geometry, or a
 // negative CUDA error code.
-int soft_family_wavefront_occupancy(int m, int width, int family,
-                                    int banded, int abs_dist, int warps,
-                                    int slots) {
+int REPRO_ENTRY(family_wavefront_occupancy)(int m, int width, int family,
+                                            int banded, int abs_dist,
+                                            int warps, int slots) {
   const Call a{1, nullptr, nullptr, nullptr, nullptr, 0, m, 0, 0,
                banded ? 0 : -1, warps, slots, Params{}, nullptr, nullptr,
                nullptr};
-  return soft_entry(a, width, family, abs_dist);
+  return entry(a, width, family, abs_dist);
+}
+
+const char* error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"
-
-#endif  // REPRO_SOFT
-
-extern "C" const char* error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

@@ -1,7 +1,7 @@
 // The shared-memory ring that passes a chunk's right boundary column to
 // the warp that sweeps the next chunk, for the multi-warp wavefronts of
 // csrc/wavefront.cu (hard-min, K1/K3/K4 and bf16-K1; soft-min, K5/K6) and
-// csrc/family_wavefront.cu (soft-min K7).
+// csrc/family_wavefront.cu (K7, both builds).
 //
 // Each link (warp p to warp (p+1) mod P) has its own ring of slots; a slot
 // holds a group of 32 rows, and has a full and an empty mbarrier (arrival

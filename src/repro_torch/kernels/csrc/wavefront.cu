@@ -520,7 +520,7 @@ int wavefront_occupancy(int m, int width, int window, int banded,
 //     step t computes row i = t - l.  Lane 31's last cell of each row goes
 //     to the next chunk's warp through the shared-memory ring of
 //     csrc/ring.cuh (32-row groups, a full/empty mbarrier pair each, one
-//     f32 a row), walked by RingWalk as K1/K3 and soft K7 walk it: in each
+//     f32 a row), walked by RingWalk as K1/K3 and K7 walk it: in each
 //     ring step the arrivals come before the waits, the last visited chunk
 //     writes no ring and the first reads none, a warp with no chunk
 //     touches no mbarrier.  Lane 0 keeps its upleft as the previous step's

@@ -10,9 +10,9 @@ folds ``CornerFold`` (twed, erp; ``:304``), ``LocalCellsFold`` (local,
 
 The geometry is the sdtw wavefront's (:mod:`repro_torch.kernels.
 wavefront`) over the zero-padded reference layout, ``32 * w`` columns a
-chunk: the hard-min build runs one warp per query, the soft-min build
-one CTA of ``warps`` warps per query, each chunk's boundary column passed
-to the next warp through a shared-memory ring (:func:`family_geometry`).
+chunk: both builds (hard-min and soft-min, one kernel template) run one
+CTA of ``warps`` warps per query, each chunk's boundary column passed to
+the next warp through a shared-memory ring (:func:`family_geometry`).
 The family operands come from
 :func:`repro_torch.kernels.ops.family_extras`: twed ``(r_prev,)`` and
 erp ``(bt, bl)``, ``r_prev``/``bt`` zero-padded to the layout's length
@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core.engine import sdtw_engine
+from repro_torch.core import engine
 from repro_torch.core.spec import DPSpec
 from repro_torch.kernels import build, wavefront
 from repro_torch.kernels.wavefront import RingGeometry
@@ -57,19 +57,27 @@ def refuse_grad(spec: DPSpec, *tensors) -> None:
             "autograd covers the families")
 
 
+def library_name(soft: bool) -> str:
+    """The build of family_wavefront.cu of a reduction, hard-min or
+    soft-min (the soft build's C entries carry the same ``soft_``
+    prefix)."""
+    return "soft_family_wavefront" if soft else "family_wavefront"
+
+
 def family_geometry(m: int, family_: str,
                     warps: int = wavefront.WARPS) -> RingGeometry:
-    """Size soft K7's launch (``smem_bytes`` in family_wavefront.cu): the
-    multi-warp rings of :func:`wavefront.ring_geometry`, one f32 a row,
-    the same for every family and the same as K5/K6's.  Raises when it
-    and the static fold arrays are over the shared memory a block can
-    have (m above 26,912 at 8 warps)."""
-    geo = wavefront.ring_geometry(m, warps, "soft K7")
+    """Size K7's launch, either reduction (``smem_bytes`` in
+    family_wavefront.cu): the multi-warp rings of
+    :func:`wavefront.ring_geometry`, one f32 a row, the same for every
+    family and the same as K5/K6's.  Raises when it and the static fold
+    arrays are over the shared memory a block can have (m above 26,912 at
+    8 warps)."""
+    geo = wavefront.ring_geometry(m, warps, "K7")
     if geo.smem_bytes + wavefront.STATIC_SMEM > wavefront.SMEM_LIMIT:
         raise ValueError(
             f"query length m={m} needs "
             f"{geo.smem_bytes + wavefront.STATIC_SMEM} bytes of shared "
-            f"memory per block for soft {family_} (K7), over the "
+            f"memory per block for {family_} (K7), over the "
             f"{wavefront.SMEM_LIMIT} a block can have")
     return geo
 
@@ -107,18 +115,26 @@ def family_plain(q: torch.Tensor, r_layout: torch.Tensor, extras: tuple, *,
                  n: int, w: int, spec: DPSpec):
     """The plain version: the engine's family sweep over the same visited
     columns of the same layout, with the same extra operands, folding
-    ``j < n`` only."""
+    ``j < n`` only.  On the card, with no gradient asked for, the sweep's
+    steady diagonals replay from a CUDA graph (``engine._dp_engine``'s
+    ``_graph``); the bits are the eager sweep's."""
     cols = visited_chunks(q.shape[1], r_layout, w, spec) \
         * wavefront.chunk_cols(w)
     ex = tuple(x if name == "bl" else x[:cols] for name, x in
                zip(EXTRA_INPUTS[spec.family], extras))
-    return sdtw_engine(q, r_layout[:cols], spec=spec, n_valid=n, extras=ex)
+    needs_grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, r_layout, *ex))
+    return engine._dp_engine(q.to(torch.float32),
+                             r_layout[:cols].to(torch.float32), spec=spec,
+                             return_window=False, n_valid=n, extras=ex,
+                             _graph=q.is_cuda and not needs_grad)
 
 
-def _soft_fn(lib: ctypes.CDLL, name: str):
-    fn = getattr(lib, name)
+def _fn(lib: ctypes.CDLL, soft: bool, op: str):
+    """A C entry of a K7 build: ``launch`` or ``occupancy``."""
+    fn = getattr(lib, f"{'soft_' if soft else ''}family_wavefront_{op}")
     fn.restype = ctypes.c_int
-    if name == "soft_family_wavefront_launch":
+    if op == "launch":
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                        + [ctypes.c_float] * 6 + [ctypes.c_void_p] * 3)
     else:
@@ -127,25 +143,25 @@ def _soft_fn(lib: ctypes.CDLL, name: str):
 
 
 def family_occupancy(m: int, w: int, family_: str,
-                     warps: int = wavefront.WARPS) -> int:
-    """CTAs of the (unbanded, sqeuclidean) soft K7 instantiation resident
-    per SM at this geometry
+                     warps: int = wavefront.WARPS, *, soft: bool) -> int:
+    """CTAs of the (unbanded, sqeuclidean) K7 instantiation of either
+    build resident per SM at this geometry
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; card only)."""
     geo = family_geometry(m, family_, warps)
-    lib = build.library("soft_family_wavefront")
-    blocks = _soft_fn(lib, "soft_family_wavefront_occupancy")(
+    lib = build.library(library_name(soft))
+    blocks = _fn(lib, soft, "occupancy")(
         m, w, FAMILY_CODES[family_], 0, 0, geo.warps, geo.slots)
     if blocks < 0:
-        build.check(lib, -blocks, f"soft K7 occupancy (w={w}, m={m})")
+        build.check(lib, -blocks, f"K7 occupancy (w={w}, m={m})")
     return blocks
 
 
 def family_cuda(q: torch.Tensor, r_layout: torch.Tensor, extras: tuple, *,
                 n: int, w: int, spec: DPSpec, warps: int = wavefront.WARPS,
                 lib: ctypes.CDLL | None = None):
-    """Launch K7: the hard-min build one warp per query, the soft-min
-    build one CTA of ``warps`` warps per query.  ``lib``: another build
-    of the soft-min source (default: ``soft_family_wavefront``)."""
+    """Launch K7, one CTA of ``warps`` warps per query, from the build
+    of the spec's reduction.  ``lib``: another build of the same source
+    and reduction (default: :func:`library_name`)."""
     B, m = q.shape
     chunks = visited_chunks(m, r_layout, w, spec)
     named = dict(zip(EXTRA_INPUTS[spec.family], extras))
@@ -163,26 +179,16 @@ def family_cuda(q: torch.Tensor, r_layout: torch.Tensor, extras: tuple, *,
             0 if bl is None else bl.data_ptr())
     shape = (B, m, n, chunks, band, w, FAMILY_CODES[spec.family],
              int(spec.distance == "abs"))
-    if spec.soft:
-        geo = family_geometry(m, spec.family, warps)
-        lib = lib if lib is not None else build.library(
-            "soft_family_wavefront")
-        fn = _soft_fn(lib, "soft_family_wavefront_launch")
-        args = (*ptrs, *shape, geo.warps, geo.slots, *consts, spec.gamma)
-        what = f"warps={geo.warps}, "
-    else:
-        lib = build.library("family_wavefront")
-        fn = lib.family_wavefront_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 3)
-        args = (*ptrs, *shape, *consts)
-        what = ""
+    geo = family_geometry(m, spec.family, warps)
+    lib = lib if lib is not None else build.library(library_name(spec.soft))
+    fn = _fn(lib, spec.soft, "launch")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = fn(*args, cost.data_ptr(), end.data_ptr(), stream)
+        status = fn(*ptrs, *shape, geo.warps, geo.slots, *consts, spec.gamma,
+                    cost.data_ptr(), end.data_ptr(), stream)
     build.check(lib, status, f"family wavefront launch (w={w}, B={B}, "
-                             f"m={m}, {what}{spec.describe()})")
+                             f"m={m}, warps={geo.warps}, "
+                             f"{spec.describe()})")
     counter.add(variant(spec))
     return cost, end
 

@@ -121,14 +121,9 @@ def soft_geometry(m: int, n: int, n_pad: int, w: int, band: int | None,
     return 0, visited, n, 0
 
 
-def strip_bytes(m: int) -> int:
-    """Shared memory of the one-warp hard K7: two strips of m f32."""
-    return 2 * 4 * m
-
-
 class RingGeometry(NamedTuple):
     """Launch geometry of a multi-warp wavefront (the hard-min kernel,
-    K5/K6, soft K7) for one query length."""
+    K5/K6, K7) for one query length."""
     warps: int        # warps per CTA; one CTA per query
     slots: int        # ring groups of RING_GROUP rows, per link
     ring_rows: int    # slots * RING_GROUP
@@ -174,7 +169,7 @@ def hard_geometry(m: int, with_window: bool,
 
 def soft_ring_geometry(m: int, warps: int = WARPS) -> RingGeometry:
     """The soft kernel's launch, K5 and the K6 pair (``soft_smem_bytes``
-    in wavefront.cu): one f32 a ring row, as soft K7's
+    in wavefront.cu): one f32 a ring row, as K7's
     (``family.family_geometry``).  The ring counterpart of
     :func:`soft_geometry`, which gives the chunks a sweep visits."""
     return ring_geometry(m, warps, "the soft-min kernel")
@@ -184,14 +179,10 @@ def block_smem(m: int, spec: DPSpec, *, with_window: bool = False) -> int:
     """Shared memory per block (dynamic and the static fold arrays) of
     the kernel that runs ``spec``'s plan at query length m (WARPS warps
     a multi-warp CTA): the hard-min
-    kernel's rings (:func:`hard_geometry`), the soft kernel's
-    (:func:`soft_ring_geometry`), soft K7's (the same rings, see
-    ``family.family_geometry``) or hard K7's strips
-    (:func:`strip_bytes`)."""
-    kernel = plan_kernel(spec)
-    if kernel == "family" and not spec.soft:
-        return strip_bytes(m)
-    geo = (hard_geometry(m, with_window) if kernel == "hard"
+    kernel's rings (:func:`hard_geometry`), or the soft kernel's
+    (:func:`soft_ring_geometry`), which are K7's under either reduction
+    (``family.family_geometry``)."""
+    geo = (hard_geometry(m, with_window) if plan_kernel(spec) == "hard"
            else soft_ring_geometry(m))
     return geo.smem_bytes + STATIC_SMEM
 
@@ -202,8 +193,8 @@ def longest_query(spec: DPSpec, *, with_window: bool = False,
     spec, ``with_window`` (the ``start`` output, K3) and the compute
     type (bf16-K1 stages the same rings as K1, so it does not move the
     limit).  The largest m whose :func:`block_smem` fits the block's
-    SMEM_LIMIT: 26,912 for K1/K4/bf16-K1, K5/K6 and soft K7, 18,145 for
-    K3, 29,056 for hard K7 (at 8 warps)."""
+    SMEM_LIMIT: 26,912 for K1/K4/bf16-K1, K5/K6 and K7, 18,145 for K3
+    (at 8 warps)."""
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
                          f"got {compute_dtype}")

@@ -76,7 +76,7 @@ LONGEST = [
     ({"band": 900}, ("cost", "end"), 26_912),
     ({"reduction": "softmin", "gamma": 0.5}, ("cost", "end"), 26_912),
     ({"reduction": "softmin", "gamma": 0.5}, ("soft_alignment",), 26_912),
-    ({"family": "twed", "nu": 0.5, "lam": 0.75}, ("cost", "end"), 29_056),
+    ({"family": "twed", "nu": 0.5, "lam": 0.75}, ("cost", "end"), 26_912),
     ({"family": "local", "reduction": "softmin", "gap_penalty": 0.6,
       "match_reward": 1.1}, ("cost", "end"), 26_912)]
 LONGEST_IDS = ["K1", "K3", "K4", "K5", "K6", "K7-hard", "K7-soft"]

@@ -348,6 +348,30 @@ def test_check_plan_rules(spec, kwargs, message):
     assert wavefront.plan_kernel(DPSpec(family="twed")) == "family"
 
 
+@pytest.mark.parametrize("reduction", ["hardmin", "softmin"])
+@pytest.mark.parametrize("family_", FAMS)
+def test_device_t_diagonals_equal_int_t_diagonals(family_, reduction):
+    """K7's plain sweep with the steady stretch run by the CUDA graph's
+    body (the diagonal index a tensor, the reference windows through
+    index_select, d1 / d2 rotating through fixed buffers), eagerly on the
+    CPU, is bit-equal to the sweep with an int index everywhere, on a
+    padded multi-chunk layout (folding j < n) and on a reference shorter
+    than the query (no steady stretch)."""
+    rng = np.random.default_rng(16)
+    spec = spec_for(family_, reduction=reduction)
+    for m, n in ((20, N3), (33, 30)):
+        q = torch.from_numpy(rng.standard_normal((3, m)).astype(np.float32))
+        r = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+        lay = ops.prepare_reference(r, 2)
+        ex = ops.family_extras(spec, q, r, segment_width=2)
+        outs = [engine._dp_engine(q, lay, spec=spec, return_window=False,
+                                  n_valid=n, extras=ex, _graph=graph)
+                for graph in (False, True)]
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+        assert all(torch.equal(a, b) for a, b in zip(
+            outs[0], family.family_plain(q, lay, ex, n=n, w=2, spec=spec)))
+
+
 # ------------------------------------------------------ on the card
 @pytest.mark.gpu
 @pytest.mark.parametrize("reduction", ["hardmin", "softmin"])
@@ -429,3 +453,98 @@ def test_soft_k7_at_its_longest_query_on_card(cuda, family_):
     torch.cuda.synchronize()
     assert torch.equal(got[1], want[1])
     torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+@pytest.mark.parametrize("family_", FAMS)
+def test_hard_k7_chunk_counts_on_card(cuda, family_, warps):
+    """Hard K7's CTA of several warps at 1, P-1, P, P+1 and 2P+1 chunks
+    (idle warps, a ring that wraps), bit-equal to its plain version."""
+    rng = np.random.default_rng(17)
+    spec = spec_for(family_)
+    P = wavefront.WARPS
+    for m in (1, 33, 200):
+        for k in (1, P - 1, P, P + 1, 2 * P + 1):
+            n = (k - 1) * 64 + 35            # w = 2: 64 columns a chunk
+            q = torch.from_numpy(rng.standard_normal((3, m)).astype(
+                np.float32)).to(cuda)
+            r = torch.from_numpy(rng.standard_normal(n).astype(
+                np.float32)).to(cuda)
+            lay = ops.prepare_reference(r, 2)
+            ex = ops.family_extras(spec, q, r, segment_width=2)
+            want = family.family_plain(q, lay, ex, n=n, w=2, spec=spec)
+            got = family.family_cuda(q, lay, ex, n=n, w=2, spec=spec,
+                                     warps=warps)
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], want[1]), (m, k)
+            assert torch.equal(got[0], want[0]), (m, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family_", FAMS)
+def test_hard_k7_at_its_longest_query_on_card(cuda, family_):
+    """The longest query hard K7 takes at 8 warps (the soft build's
+    geometry), bit-equal to its plain version."""
+    rng = np.random.default_rng(18)
+    spec = spec_for(family_)
+    m, n = 26_912, 100
+    assert wavefront.longest_query(spec) == m
+    q = torch.from_numpy(rng.standard_normal((2, m)).astype(
+        np.float32)).to(cuda)
+    r = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    lay = ops.prepare_reference(r, 2)
+    ex = ops.family_extras(spec, q, r, segment_width=2)
+    want = family.family_plain(q, lay, ex, n=n, w=2, spec=spec)
+    got = family.family_cuda(q, lay, ex, n=n, w=2, spec=spec)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reduction", ["hardmin", "softmin"])
+@pytest.mark.parametrize("family_", FAMS)
+def test_plain_graph_sweep_equals_eager_on_card(cuda, family_, reduction):
+    """K7's plain sweep with its steady stretch replayed from a CUDA graph
+    is bit-equal to the eager sweep on the card."""
+    rng = np.random.default_rng(19)
+    spec = spec_for(family_, reduction=reduction)
+    m, n = 40, 700
+    q = torch.from_numpy(rng.standard_normal((4, m)).astype(
+        np.float32)).to(cuda)
+    r = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    lay = ops.prepare_reference(r, 2)
+    ex = ops.family_extras(spec, q, r, segment_width=2)
+    outs = [engine._dp_engine(q, lay, spec=spec, return_window=False,
+                              n_valid=n, extras=ex, _graph=graph)
+            for graph in (False, True)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family_", FAMS)
+def test_plain_graph_sweep_on_a_card_not_current(cuda, family_):
+    """The graph sweep on a tensor of a card that is not the current one
+    captures and replays on that tensor's card: bit-equal to the eager
+    sweep there, and the current card stays current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    rng = np.random.default_rng(23)
+    spec = spec_for(family_)
+    other = torch.device("cuda", 1)
+    q = torch.from_numpy(rng.standard_normal((4, 40)).astype(
+        np.float32)).to(other)
+    r = torch.from_numpy(rng.standard_normal(700).astype(np.float32)).to(
+        other)
+    lay = ops.prepare_reference(r, 2)
+    ex = ops.family_extras(spec, q, r, segment_width=2)
+    with torch.cuda.device(0):
+        outs = [engine._dp_engine(q, lay, spec=spec, return_window=False,
+                                  n_valid=700, extras=ex, _graph=graph)
+                for graph in (False, True)]
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(other)
+    assert all(x.device == other for x in outs[1])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))

@@ -263,7 +263,7 @@ def test_soft_ring_model_delivers_and_checkpoints(reverse, m):
 @pytest.mark.parametrize("kwargs,with_window,longest", [
     ({}, False, 26_912), ({}, True, 18_145), ({"band": 900}, False, 26_912),
     ({"reduction": "softmin"}, False, 26_912),
-    ({"family": "twed", "nu": 0.5, "lam": 0.75}, False, 29_056),
+    ({"family": "twed", "nu": 0.5, "lam": 0.75}, False, 26_912),
     ({"family": "local", "reduction": "softmin", "gap_penalty": 0.6,
       "match_reward": 1.1}, False, 26_912)],
     ids=["K1", "K3", "K4", "K5-K6", "K7-hard", "K7-soft"])
@@ -338,6 +338,17 @@ def test_family_geometry_fits_and_its_ring_delivers(family_, warps, m):
 def test_family_geometry_at_paper_and_its_limit():
     for fam in FAMS:
         assert family.family_geometry(PAPER_M, fam).smem_bytes == 19_776
+        # both reductions run the same kernel template on the same rings
+        hard = resolve_spec(None, family=fam, **FAMILY_PARAMS)
+        soft = resolve_spec(None, family=fam, reduction="softmin",
+                            gamma=0.7, **FAMILY_PARAMS)
+        for m in (1, PAPER_M, 26_912):
+            assert wavefront.block_smem(m, hard) \
+                == wavefront.block_smem(m, soft) \
+                == family.family_geometry(m, fam).smem_bytes \
+                + wavefront.STATIC_SMEM <= wavefront.SMEM_LIMIT
+        assert wavefront.block_smem(26_913, hard) \
+            == wavefront.block_smem(26_913, soft) > wavefront.SMEM_LIMIT
     with pytest.raises(ValueError, match="1 to 8 warps"):
         family.family_geometry(PAPER_M, "local", 9)
     # the longest query the card takes at 8 warps: the dynamic shared
@@ -485,6 +496,93 @@ def test_kernel_family_cell_equals_family_cell(family_, distance):
     assert {(bool(a), bool(b)) for a, b in zip(i == 0, j == 0)} == {
         (False, False), (False, True), (True, False), (True, True)}
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+
+
+def _hard_kernel_family_cell(spec, qv, rv, left, up, upleft, *, i, j,
+                             q_prev, r_prev, top, left_bnd):
+    """One cell as hard K7 computes it, in float32: the constants rounded
+    once to float32, the column-only t_left and the row-only t_up
+    hoisted, twed's |i - j| as |float(i - j0) - k| (lane column j0,
+    k = j - j0 < 8), the boundaries injected at row -1 and column -1 in
+    the order of the kernel's EDGE step with the KERNEL_BIG sentinel,
+    then fminf(fminf(left, up), upleft) and, for local, fminf(v, 0)."""
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32)
+    d = spec.cell_cost
+    big, zero = f32(KERNEL_BIG), f32(0.0)
+    row0, col0 = i == 0, j == 0
+    if spec.family == "twed":
+        nl, two_nu = f32(spec.nu + spec.lam), f32(2.0 * spec.nu)
+        tl, tup = d(rv, r_prev) + nl, d(qv, q_prev) + nl
+        k = j % 8
+        fd = (i - (j - k)).float()
+        td = (d(qv, rv) + d(q_prev, r_prev)) \
+            + two_nu * (fd - k.float()).abs()
+        up_b = torch.where(row0, big, up)
+        ul_b = torch.where(row0, torch.where(col0, zero, big), upleft)
+        left_b = torch.where(col0, big, left)
+        ul_b = torch.where(col0 & ~row0, big, ul_b)
+    elif spec.family == "erp":
+        g = f32(spec.gap)
+        tl, tup, td = d(rv, g), d(qv, g), d(qv, rv)
+        up_b = torch.where(row0, top, up)
+        ul_b = torch.where(row0, top - tl, upleft)
+        left_b = torch.where(col0, left_bnd, left)
+        ul_b = torch.where(col0 & ~row0, left_bnd - tup, ul_b)
+    else:
+        tl = tup = f32(spec.gap_penalty)
+        td = d(qv, rv) - f32(spec.match_reward)
+        up_b = torch.where(row0, zero, up)
+        left_b = torch.where(col0, zero, left)
+        ul_b = torch.where(row0 | col0, zero, upleft)
+    val = torch.minimum(torch.minimum(left_b + tl, up_b + tup), ul_b + td)
+    return torch.minimum(val, zero) if spec.family == "local" else val
+
+
+@pytest.mark.parametrize("distance", ["sqeuclidean", "abs"])
+@pytest.mark.parametrize("family_", FAMS)
+def test_hard_kernel_family_cell_equals_family_cell(family_, distance):
+    """Hard K7's hoisted cell equals DPSpec.family_cell bit for bit (with
+    the kernel's sentinel), at the benchmark's parameters and at
+    parameters whose float32 roundings are not exact, over every row 0 /
+    column 0 pattern, |i - j| up to a few thousand, ties and KERNEL_BIG
+    among the neighbours."""
+    rng = np.random.default_rng(25)
+    n = 4000
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy(rng.normal(scale=scale, size=shape).astype(
+            np.float32))
+    awkward = dict(nu=0.3, lam=0.45, gap=0.3, gap_penalty=0.7,
+                   match_reward=1.3)
+    for params in (FAMILY_PARAMS, awkward):
+        spec = resolve_spec(None, family=family_, distance=distance,
+                            **params)
+        qv, rv, q_prev, r_prev = f32(n), f32(n), f32(n), f32(n)
+        left, up, upleft = (f32(n, scale=30.0) for _ in range(3))
+        up[:300] = left[:300]
+        upleft[300:600] = KERNEL_BIG
+        left[600:700] = KERNEL_BIG
+        up[650:750] = KERNEL_BIG
+        upleft[650:700] = KERNEL_BIG      # all three: the sentinel back
+        top, left_bnd = f32(n, scale=30.0), f32(n, scale=30.0)
+        i = torch.from_numpy(np.concatenate([
+            rng.integers(0, 4, size=n // 2), rng.integers(0, 5000,
+                                                          size=n // 2)]))
+        j = torch.from_numpy(np.concatenate([
+            rng.integers(0, 4, size=n // 2), rng.integers(0, 5000,
+                                                          size=n // 2)]))
+        kw = dict(i=i, j=j, q_prev=q_prev, r_prev=r_prev)
+        got = _hard_kernel_family_cell(spec, qv, rv, left, up, upleft,
+                                       top=top, left_bnd=left_bnd, **kw)
+        want = spec.family_cell(qv, rv, left, up, upleft, is_row0=i == 0,
+                                is_col0=j == 0, top_boundary=top,
+                                left_boundary=left_bnd, big=KERNEL_BIG, **kw)
+        assert {(bool(a), bool(b)) for a, b in zip(i == 0, j == 0)} == {
+            (False, False), (False, True), (True, False), (True, True)}
+        assert torch.equal(got, want)
+        if family_ != "local":
+            assert (want == torch.tensor(KERNEL_BIG)).any()
 
 
 def test_twed_diagonal_carry_is_the_previous_steps_distance():
