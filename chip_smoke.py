@@ -86,7 +86,21 @@ Phases, one JSON line each:
      width, band, distance, with and without the start lane; and at
      PAPER through ``ops.sdtw_wavefront(compute_dtype=bfloat16)``), the
      JAX bar at the JAX test's shape, ends at PAPER against float32;
- 15. the ``kernels`` line.
+ 15. ``path``: warping paths of 16 PAPER queries (every 32nd, planted
+     windows) through ``repro_torch.sdtw(outputs=("cost", "start",
+     "end", "path"))`` and an ``Aligner``, K3 launches counted; each path
+     runs from K3's start to its end in unit steps, sums (float64) to
+     K3's cost within 2e-3 and covers the planted window; two equal the
+     float64 full-matrix oracle; the host traceback's seconds a query;
+ 16. ``tune``: ``segment_width="auto"`` with ``REPRO_TORCH_TUNE_CACHE``
+     on a temporary file — cold kernel tunes of K1 and K3 at PAPER (ms
+     per width, winner, trials, seconds; each result bit-equal to w
+     8's), a fresh cache over the file answering both with 0 trials and
+     1 hit, a warm auto ``Aligner`` call beside a warm w 8 call, the
+     unpinned kernel-against-engine tune at B 64, M 256, N 8,192 with
+     ``registry.select`` counting its verdict, and soft (K5, within
+     1e-6) and twed (K7, bit-equal) auto calls there against w 8;
+ 17. the ``kernels`` line.
 The last line is the verdict ``{"ok": true, "device": {...}}``, printed
 only when every phase passed on the card.  Any failure raises and exits
 non-zero.  With no card (and no ``--cpu``) the script exits 1 at once.
@@ -185,6 +199,14 @@ BF16_PER_LANE = 2
 # unaligned rows (each with 1 and 513 rows; 300,003: the cluster kernel
 # that reads its slice twice)
 K2_LENGTHS = (1, 31, 2001, 100_000, 100_003, 300_003)
+# the path phase: every (batch / PATH_QUERIES)-th query at PAPER, the
+# first PATH_ORACLE of them also against the float64 full-matrix oracle
+PATH_QUERIES = 16
+PATH_ORACLE = 2
+# the unpinned kernel-against-engine tune (batch, query, reference): the
+# engine trial replays the host-paced plain sweep, too slow at PAPER
+TUNE_SMALL = (64, 256, 8192)
+TUNE_SMALL_CPU = (8, 32, 1024)
 # device time of a small kernel: a CUDA graph of this many launches,
 # replayed GRAPH_REPLAYS times between two events
 GRAPH_LAUNCHES = 20
@@ -1214,6 +1236,279 @@ def bf16_phase(c, main_res, layout, qn) -> dict:
     return info
 
 
+def path_phase(c, queries_np, ref_np, planted, k3) -> dict:
+    """Warping paths at PAPER's M and N: every PATH_STRIDE-th query (16
+    of 512, planted windows all) through ``repro_torch.sdtw`` and an
+    ``Aligner`` with ``outputs=("cost", "start", "end", "path")``, K3
+    launches counted; each path starts at K3's start and ends at its
+    end, takes unit steps, sums (float64) to K3's cost within 2e-3 and
+    covers the planted window, and the first PATH_ORACLE paths equal the
+    float64 full-matrix oracle over the window's slice."""
+    np, torch = c.np, c.torch
+    import repro_torch
+    from repro_torch.align import oracle_path
+    from repro_torch.align.traceback import host_f64
+    from repro_torch.core.normalize import normalize_batch
+    from repro_torch.kernels import normalizer, wavefront
+    from repro_torch.obs import MetricsRegistry, Tracer
+    B, m = c.cfg.batch, c.cfg.query_len
+    idx = np.arange(0, B, max(1, B // PATH_QUERIES))[:PATH_QUERIES]
+    q_sel = queries_np[idx]
+    outputs = ("cost", "start", "end", "path")
+    normalizer.counter.reset()
+    wavefront.counter.reset()
+    t0 = time.perf_counter()
+    res = repro_torch.sdtw(q_sel, ref_np, outputs=outputs, device=c.dev,
+                           backend=c.backend)
+    sdtw_s = time.perf_counter() - t0
+    tracer = Tracer(metrics=MetricsRegistry(), device_sync=True)
+    aligner = repro_torch.Aligner(ref_np, device=c.dev, backend=c.backend,
+                                  tracer=tracer)
+    t0 = time.perf_counter()
+    res_a = aligner(q_sel, outputs=outputs)
+    aligner_s = time.perf_counter() - t0
+    (dispatch,) = [e for e in tracer.events
+                   if e["name"] == "aligner.dispatch"]
+    launches = {"normalizer": normalizer.counter.count,
+                "wavefront": dict(wavefront.counter.by_variant)}
+    require(not c.cuda or launches == {"normalizer": 4,
+                                       "wavefront": {"K3": 2}},
+            f"path launches {launches}: want K3 once and K2 twice per "
+            f"call")
+    qn = host_f64(normalize_batch(torch.from_numpy(q_sel).to(c.dev)))
+    rn = host_f64(aligner.reference)
+    oracle_s = 0.0
+    for k, b in enumerate(idx):
+        start, end = int(res.start[k]), int(res.end[k])
+        require(start == int(k3.start[b]) and end == int(k3.end[b]),
+                f"query {b}: path window ({start}, {end}) is not the main "
+                f"path's K3 window")
+        for got in (res, res_a):
+            path = got.path[k]
+            require(np.array_equal(path, res.path[k]),
+                    f"query {b}: sdtw and Aligner paths differ")
+        path = res.path[k]
+        require(tuple(path[0]) == (0, start) and
+                tuple(path[-1]) == (m - 1, end),
+                f"query {b}: path runs {tuple(path[0])} -> "
+                f"{tuple(path[-1])}, window ({start}, {end})")
+        steps = set(map(tuple, np.diff(path, axis=0).tolist()))
+        require(steps <= {(0, 1), (1, 0), (1, 1)},
+                f"query {b}: path steps {steps}")
+        cost = float(((qn[k][path[:, 0]] - rn[path[:, 1]]) ** 2).sum())
+        want = float(res.cost[k])
+        require(abs(cost - want) <= 2e-3 + 2e-3 * abs(want),
+                f"query {b}: path sums to {cost}, K3 cost {want}")
+        require(path[0, 1] <= planted[b] and
+                path[-1, 1] >= planted[b] + m - 1,
+                f"query {b}: path misses the planted window at "
+                f"{planted[b]}")
+        if k < PATH_ORACLE:
+            t0 = time.perf_counter()
+            oracle = oracle_path(qn[k], rn[start:end + 1])
+            oracle_s += time.perf_counter() - t0
+            oracle[:, 1] += start
+            require(np.array_equal(oracle, path),
+                    f"query {b}: path differs from the float64 oracle")
+    info = {"phase": "path", "queries": [int(b) for b in idx],
+            "query_len": m, "ref_len": c.cfg.ref_len,
+            "launches": launches, "path_cells": [len(p) for p in res.path],
+            "checked": "start/end = K3's, unit steps, float64 sum within "
+                       "2e-3 of K3's cost, planted window covered, sdtw "
+                       "== Aligner",
+            "oracle_equal_queries": [int(b) for b in idx[:PATH_ORACLE]],
+            "oracle_s": oracle_s, "sdtw_s": sdtw_s, "aligner_s": aligner_s,
+            "aligner_dispatch_ms": dispatch["dur_ns"] / 1e6,
+            "traceback_s_per_query": (aligner_s - dispatch["dur_ns"] / 1e9)
+            / len(idx),
+            "traceback_clock": "host clock: the Aligner call less its "
+                               "synchronized dispatch span (K2 and K3), "
+                               "per query"}
+    emit(info)
+    return info
+
+
+def tune_phase(c, queries_np, ref_np, k1, k3) -> dict:
+    """``segment_width="auto"`` with ``REPRO_TORCH_TUNE_CACHE`` on a
+    temporary file: cold kernel tunes of K1 and K3 at PAPER (each result
+    bit-equal to w 8's), a fresh cache over the file answering both with
+    0 trials and 1 hit, a warm auto ``Aligner`` call beside a warm w 8
+    call, the unpinned kernel-against-engine tune at TUNE_SMALL with
+    ``registry.select`` counting its verdict, and soft (K5) and twed (K7)
+    auto calls there against w 8."""
+    import os
+    import tempfile
+    np, torch = c.np, c.torch
+    import repro_torch
+    from repro_torch import obs, tune
+    from repro_torch.backends import registry
+    from repro_torch.configs.paper_sdtw import SDTWWorkload
+    from repro_torch.core.result import sweep_outputs
+    from repro_torch.core.spec import DPSpec, resolve_spec
+    from repro_torch.kernels.ops import width_candidates
+    cfg, dev = c.cfg, c.dev
+    B, m, n = cfg.batch, cfg.query_len, cfg.ref_len
+    reg = obs.default_registry()
+    tmp = tempfile.mkdtemp(prefix="repro_torch_tune_")
+    cache_file = os.path.join(tmp, "tuning.json")
+    old_env = os.environ.get("REPRO_TORCH_TUNE_CACHE")
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = cache_file
+    tune.set_default_cache(None, device=dev)   # reopen on the new file
+    info = {"phase": "tune", "cache_file": "a temporary file "
+            "(REPRO_TORCH_TUNE_CACHE)", "widths": list(
+                width_candidates(n))}
+    try:
+        cold = {}
+        for label, outputs, want in (("K1", ("cost", "end"), k1),
+                                     ("K3", ("cost", "start", "end"), k3)):
+            trials0 = reg.value("tune.trials")
+            t0 = time.perf_counter()
+            got = repro_torch.sdtw(queries_np, ref_np, backend="kernel",
+                                   segment_width="auto", outputs=outputs,
+                                   device=dev)
+            c.sync()
+            secs = time.perf_counter() - t0
+            key = tune.workload_key(spec=DPSpec(), m=m, n=n,
+                                    batch_bucket=tune.batch_bucket(B),
+                                    outputs=sweep_outputs(outputs))
+            verdict = tune.default_cache(dev).get(key)
+            require(verdict is not None, f"{label}: no verdict cached")
+            for o in outputs:
+                require(torch.equal(getattr(got, o), getattr(want, o)),
+                        f"{label} auto (w {verdict['segment_width']}) "
+                        f"{o} differs from w 8's")
+            measured = verdict["measured"]
+            cold[label] = {
+                "outputs": list(outputs), "seconds": secs,
+                "trials": reg.value("tune.trials") - trials0,
+                "winner_width": verdict["segment_width"],
+                "winner_ms": verdict["best_ms"],
+                "w8_ms": measured.get("kernel:w8"),
+                "ms_by_width": dict(sorted(
+                    (int(k.split("w", 1)[1]), v)
+                    for k, v in measured.items())),
+                "bit_equal_to_w8": True, "key": key}
+        info["cold"] = cold
+        # a fresh cache over the same file: the next process
+        warm = {}
+        fresh = tune.TuningCache(cache_file, device=dev)
+        for label, outputs in (("K1", ("cost", "end")),
+                               ("K3", ("cost", "start", "end"))):
+            mreg = obs.MetricsRegistry()
+            res = tune.autotune(ref_np, m=m, batch=B, outputs=outputs,
+                                backends=("kernel",), device=dev,
+                                cache=fresh, metrics=mreg)
+            warm[label] = {"trials": mreg.value("tune.trials"),
+                           "cache_hits": mreg.value("tune.cache_hits"),
+                           "width": res.segment_width}
+            require(warm[label]["trials"] == 0 and
+                    warm[label]["cache_hits"] == 1 and res.from_cache,
+                    f"{label}: a warm cache measured ({warm[label]})")
+        info["warm_fresh_cache"] = warm
+        # a warm auto Aligner call beside a warm w 8 call, alternated
+        auto = repro_torch.Aligner(ref_np, segment_width="auto",
+                                   device=dev, backend=c.backend)
+        pinned = repro_torch.Aligner(ref_np, segment_width=8, device=dev,
+                                     backend=c.backend)
+        trials0 = reg.value("tune.trials")
+        for a in (auto, pinned):
+            got = a(queries_np)
+            c.sync()
+            require(torch.equal(got.cost, k1.cost) and
+                    torch.equal(got.end, k1.end),
+                    "auto Aligner differs from w 8's K1")
+        require(reg.value("tune.trials") == trials0,
+                "the auto Aligner measured on a warm cache")
+        calls = {"auto": [], "w8": []}
+        for _ in range(3):
+            for label, a in (("auto", auto), ("w8", pinned)):
+                t0 = time.perf_counter()
+                a(queries_np)
+                c.sync()
+                calls[label].append((time.perf_counter() - t0) * 1e3)
+        info["aligner_warm_ms"] = {
+            "auto_width": auto.resolved_width((B, m)), "auto": calls["auto"],
+            "w8": calls["w8"], "auto_min": min(calls["auto"]),
+            "w8_min": min(calls["w8"]),
+            "clock": "host clock around a call and a synchronize"}
+        # kernel against engine, unpinned, at a small shape
+        small = TUNE_SMALL if c.cuda else TUNE_SMALL_CPU
+        sq, sr, _ = make_data(np, SDTWWorkload(
+            batch=small[0], query_len=small[1], ref_len=small[2]),
+            c.seed + 19)
+        t0 = time.perf_counter()
+        got = repro_torch.sdtw(sq, sr, segment_width="auto", device=dev)
+        c.sync()
+        secs = time.perf_counter() - t0
+        key = tune.workload_key(spec=DPSpec(), m=small[1], n=small[2],
+                                batch_bucket=tune.batch_bucket(small[0]),
+                                outputs=frozenset({"cost", "end"}))
+        verdict = tune.default_cache(dev).get(key)
+        require(verdict is not None, "unpinned tune cached no verdict")
+        before = reg.value(f"registry.select.{verdict['backend']}")
+        chosen = registry.select(DPSpec(), outputs=("cost", "end"),
+                                 device=dev, workload=(small[1], small[2],
+                                                       small[0]))
+        require(chosen.name == verdict["backend"] and
+                reg.value(f"registry.select.{verdict['backend']}")
+                == before + 1,
+                f"registry.select chose {chosen.name}, the verdict "
+                f"{verdict['backend']}")
+        pin = repro_torch.sdtw(sq, sr, backend=verdict["backend"],
+                               segment_width=verdict["segment_width"],
+                               device=dev)
+        require(torch.equal(got.cost, pin.cost),
+                "unpinned auto differs from its verdict's plan")
+        info["unpinned"] = {
+            "shape": list(small), "seconds": secs,
+            "winner": verdict["backend"],
+            "winner_width": verdict["segment_width"],
+            "ms": verdict["measured"], "select": chosen.name}
+        # soft (K5) and twed (K7) at the small shape, against w 8
+        others = {}
+        for label, kw, exact in (
+                ("K5", dict(gamma=PAPER_GAMMA), False),
+                ("K7-corner twed", dict(family="twed",
+                                        **FAMILY_PARAMS["twed"]), True)):
+            t0 = time.perf_counter()
+            got = repro_torch.sdtw(sq, sr, backend="kernel",
+                                   segment_width="auto", device=dev, **kw)
+            c.sync()
+            secs = time.perf_counter() - t0
+            want = repro_torch.sdtw(sq, sr, backend="kernel",
+                                    segment_width=8, device=dev, **kw)
+            err = float((got.cost - want.cost).abs().max())
+            if exact:
+                require(torch.equal(got.cost, want.cost) and
+                        torch.equal(got.end, want.end),
+                        f"{label} auto differs from w 8")
+            else:
+                require(bool(torch.allclose(got.cost, want.cost, rtol=1e-6,
+                                            atol=1e-6)),
+                        f"{label} auto off w 8 by {err}")
+            v = tune.default_cache(dev).get(tune.workload_key(
+                spec=resolve_spec(None, **kw), m=small[1], n=small[2],
+                batch_bucket=tune.batch_bucket(small[0]),
+                outputs=frozenset({"cost", "end"})))
+            require(v is not None, f"{label}: no verdict cached")
+            others[label] = {"seconds": secs, "trials": v["trials"],
+                             "winner_width": v["segment_width"],
+                             "ms": v["measured"], "max_abs_err_vs_w8": err,
+                             "rule": "bit-equal" if exact else
+                             "atol=rtol=1e-6"}
+        info["small_auto"] = others
+    finally:
+        tune.set_default_cache(None, device=dev)
+        if old_env is None:
+            os.environ.pop("REPRO_TORCH_TUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_TUNE_CACHE"] = old_env
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(info)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -1602,13 +1897,13 @@ def main(argv=None) -> int:
             2 * x.numel() * 4, K2_OPS_PER_ELEMENT * x.numel())
     # the launch geometry of the main path's kernels
     geometry = {}
-    for label, win in (("K1", False), ("K3", True)):
-        geo = wavefront.hard_geometry(m, win)
+    for label, windowed in (("K1", False), ("K3", True)):
+        geo = wavefront.hard_geometry(m, windowed)
         geometry[label] = {
             "warps_per_cta": geo.warps, "ring_rows": geo.ring_rows,
             "ring_groups": geo.slots, "smem_bytes_per_cta": geo.smem_bytes,
             "ctas": B, "ctas_resident_per_sm": wavefront.hard_occupancy(
-                m, w, with_window=win) if cuda else None}
+                m, w, with_window=windowed) if cuda else None}
     k56_regs = {(r.get("reverse"), r.get("w")): r.get("registers")
                 for r in ptxas.get("soft_wavefront", [])
                 if not r.get("band") and not r.get("abs")}
@@ -1680,9 +1975,13 @@ def main(argv=None) -> int:
     bf = bf16_phase(ctx, {"reference": aligner.reference, "cost": res.cost,
                           "end": res.end}, layout, qn)
 
+    # ----------------------------------- 15.-16. warping paths, tuning
+    path_phase(ctx, queries_np, ref_np, planted, win)
+    tune_phase(ctx, queries_np, ref_np, res, win)
+
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
 
-    # ------------------------------------------------ 15. kernels line
+    # ------------------------------------------------ 17. kernels line
     cu = "src/repro_torch/kernels/csrc/"
     k7 = []
     for key, name in ((("twed", False), "K7-corner"),

@@ -14,8 +14,10 @@
 
 All three run hard- and soft-min sdtw and the families twed / erp /
 local; ``ref`` and ``engine`` serve ``start`` for sdtw, twed and erp,
-``kernel`` for sdtw only.  ref and engine are differentiable under
-soft-min for every family, the kernel for sdtw; each adapter turns its sweep's tuple into an
+``kernel`` for sdtw only; ``path`` (hard-min sdtw) is derived above
+the sweep from its window (``core.api.derive_outputs``).  ref and engine
+are differentiable under soft-min for every family, the kernel for sdtw;
+each adapter turns its sweep's tuple into an
 :class:`~repro_torch.core.result.SDTWResult`.  ``soft_alignment`` is
 filled above the sweep (``core.api``), so every backend declares it.
 """
@@ -29,7 +31,7 @@ from repro_torch.core.result import from_sweep
 from repro_torch.kernels import backward, family, ops
 
 _ALL = frozenset({"sqeuclidean", "abs", "cosine"})
-_FULL = frozenset({"cost", "end", "start", "soft_alignment"})
+_FULL = frozenset({"cost", "end", "start", "path", "soft_alignment"})
 _ALL_FAMILIES = frozenset({"sdtw", "twed", "erp", "local"})
 _GLOBAL_WINDOWS = frozenset({"sdtw", "twed", "erp"})
 

@@ -8,6 +8,11 @@ an incapable request fails with an error that names who can serve it.
 Auto-selection is shape-aware: given the query length ``m``, a backend
 whose kernels cannot launch that long a query (``longest_query``)
 declines, and the next capable one runs it.
+Given the whole workload ``(m, n, batch)``, auto-selection also
+consults the tuning cache (``repro_torch.tune``): a measured verdict
+re-ranks the capable backends.  Every selection ticks the
+``registry.select.calls`` and ``registry.select.<backend>`` counters of
+the default ``repro_torch.obs`` registry.
 An alias (``soft``) names a backend with spec fields overridden.
 Counterpart of ``repro.backends.registry``.
 """
@@ -15,12 +20,16 @@ Counterpart of ``repro.backends.registry``.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Callable
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.result import DEFAULT_OUTPUTS, normalize_outputs
 from repro_torch.core.spec import DPSpec
+
+log = logging.getLogger(__name__)
 
 _BASE_OUTPUTS = frozenset(DEFAULT_OUTPUTS)
 
@@ -200,12 +209,27 @@ def resolve(name: str, spec: DPSpec, *, outputs=None,
 
 def select(spec: DPSpec, *, outputs=None,
            device: torch.device = torch.device("cpu"),
-           m: int | None = None) -> Backend:
+           m: int | None = None,
+           workload: tuple | None = None) -> Backend:
     """The first capable backend in the device's preference order; with
     the query length ``m``, one that can run queries that long (a named
     backend, :func:`resolve`, is not asked: the kernel raises its own
-    shaped error)."""
+    shaped error).
+
+    ``workload=(m, n, batch)`` (``m`` taken from it when not given) lets
+    auto-selection consult the tuning cache of ``device``: when this
+    exact workload has a measured verdict, the measured winner beats the
+    static device-priority guess — still restricted to the backends
+    capable of the spec, the outputs and the query length.
+    """
+    if workload is not None and m is None:
+        m = int(workload[0])
     choices = capable(spec, outputs=outputs, device=device, m=m)
+    if workload is not None and choices:
+        tuned = _tuned_choice(spec, workload, outputs, choices, device)
+        if tuned is not None:
+            _record_selection(tuned, spec, "tuned verdict")
+            return _REGISTRY[tuned]
     if not choices:
         what = f"spec {spec.describe()}"
         if outputs is not None:
@@ -214,4 +238,30 @@ def select(spec: DPSpec, *, outputs=None,
             spec, outputs=outputs)
         why = f" (engine: {reason})" if reason else ""
         raise ValueError(f"no registered backend supports {what}{why}")
+    _record_selection(choices[0], spec, f"first capable of {len(choices)} "
+                                        f"on device={device}")
     return _REGISTRY[choices[0]]
+
+
+def _tuned_choice(spec: DPSpec, workload: tuple, outputs,
+                  choices: list[str], device) -> str | None:
+    """The tuning cache's pick for (m, n, batch) on ``device``, when it
+    has one and the pick is among the capable choices (``cached_verdict``
+    never raises: a machine that never tuned keeps static priority)."""
+    from repro_torch.tune import cached_verdict
+    m, n, batch = workload
+    verdict = cached_verdict(spec, m=m, n=n, batch=batch, outputs=outputs,
+                             device=device)
+    if verdict is not None and verdict.get("backend") in choices:
+        return verdict["backend"]
+    return None
+
+
+def _record_selection(name: str, spec: DPSpec, why: str) -> None:
+    """Selection observability: which backend won and why — counters in
+    the default registry (``registry.select.<backend>``) plus a debug
+    log line."""
+    m = obs.default_registry()
+    m.inc("registry.select.calls")
+    m.inc(f"registry.select.{name}")
+    log.debug("select -> %s (%s) for spec %s", name, why, spec.describe())

@@ -33,11 +33,12 @@ def spec_from_dict(d: dict) -> DPSpec:
 
 
 def aligner_from_numpy(reference_normalized: np.ndarray, spec_dict: dict,
-                       *, device=None, segment_width: int = 8,
+                       *, device=None, segment_width: int | str = 8,
                        backend: str | None = None) -> Aligner:
     """A port :class:`Aligner` over a JAX session's normalized reference
     (``np.asarray(repro_aligner.reference)``), with ``normalize=False``
-    so the reference is used as it is."""
+    so the reference is used as it is; ``segment_width`` may be
+    ``"auto"``, as in the JAX session."""
     ref = np.asarray(reference_normalized, dtype=np.float32)
     return Aligner(ref, spec=spec_from_dict(spec_dict), backend=backend,
                    normalize=False, device=device,

@@ -3,8 +3,8 @@
 A request names the artifacts it wants (``outputs``) and the result
 carries exactly those fields, everything else ``None``; counterpart of
 ``repro.core.result``.  The port serves the sweep-level outputs
-``cost``, ``end`` and ``start`` and, under soft-min, ``soft_alignment``;
-``path`` (slice 3) is rejected by the front door.
+``cost``, ``end`` and ``start``, under hard-min (sdtw) ``path`` and,
+under soft-min, ``soft_alignment``.
 """
 
 from __future__ import annotations

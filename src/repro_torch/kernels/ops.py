@@ -35,8 +35,9 @@ def ceil_to(x: int, m: int) -> int:
 def validate_segment_width(w) -> int:
     """A positive int (bools rejected) that the kernel is built for."""
     if isinstance(w, bool) or not isinstance(w, int):
-        raise ValueError(f"segment_width must be an int >= 1, got {w!r} "
-                         f"('auto' waits for the tuning slice)")
+        raise ValueError(
+            f"segment_width must be an int >= 1 (or the string 'auto' "
+            f"where autotuning is supported), got {w!r}")
     if w < 1:
         raise ValueError(f"segment_width must be >= 1, got {w}")
     if w not in DEFAULT_WIDTH_CANDIDATES:

@@ -244,7 +244,8 @@ def test_spec_from_dict():
      "under soft-min"),
     (dict(family="erp", outputs=("cost", "path")), ValueError,
      "output 'path' for family 'erp'"),
-    (dict(outputs=("cost", "path")), NotPortedError, "slice 3"),
+    (dict(gamma=0.5, outputs=("cost", "path")), ValueError,
+     "under soft-min"),
     (dict(outputs="soft_alignment"), ValueError, "under hard-min"),
     (dict(distance="cosine", backend="kernel"), ValueError,
      r"backend 'kernel' does not support distance 'cosine'.*\['engine', "
@@ -276,7 +277,7 @@ def test_cosine_runs_on_the_engine():
     (True, ValueError, "int >= 1"), (0, ValueError, ">= 1"),
     (-2, ValueError, ">= 1"), (2.0, ValueError, "int >= 1"),
     (3, ValueError, "no wavefront kernel instantiation"),
-    ("auto", NotPortedError, "slice 7"),
+    ("fastest", ValueError, "or 'auto'"),
 ])
 def test_segment_width_validation(width, error, match):
     q, r = _inputs(2, 8, 40, seed=7)

@@ -47,7 +47,10 @@ def test_no_jax_and_no_repro_in_the_port():
     assert {"repro_torch.align.soft", "repro_torch.train.step",
             "repro_torch.kernels.backward",
             "repro_torch.core.softdtw", "repro_torch.dp",
-            "repro_torch.dp.oracle", "repro_torch.kernels.family"} <= names
+            "repro_torch.dp.oracle", "repro_torch.kernels.family",
+            "repro_torch.obs", "repro_torch.tune.tuner",
+            "repro_torch.tune.cache", "repro_torch.align.traceback",
+            "repro_torch.align.oracle"} <= names
 
 
 def test_every_kernel_source_has_a_build_target():
